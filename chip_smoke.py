@@ -32,22 +32,49 @@ nonzero:
              within 3e-2 of max|logits| of the plain version and the
              sampled picks against the plain pick.
 
+7. train-kernels — the four training kernels (chunk forward and
+             save-gates backward in the bias-seeded, chained and embed
+             variants; head + CE forward and backward) against their plain
+             PyTorch versions at stretch width (B=2, T=7680, 10 layers,
+             seeded weights with non-zero biases): every output and every
+             gradient within 1e-4 (float32) / 3e-2 (bfloat16) of its max.
+8. train-cli — ``python3 -m vqvae_tpu_torch.cli.train --preset stretch
+             --dataset sine --steps 3`` as a subprocess (B=64, T=7680,
+             bf16): exits 0, finite losses in log.jsonl, weights.npz loads
+             through ``cli/common.py::load_params``, and the launch counts
+             it prints show every training kernel launched.
+9. train-time — stretch at B=64: step time on the host clock around
+             synchronised steps, the device's busy share and the split by
+             kernel (torch.profiler), peak memory; each training kernel
+             against its plain version again at the main path's B=64 shapes
+             (embed and acc chunks, head + CE; bfloat16, 3e-2 of max), so
+             the split-K partitioning the path runs is the one checked;
+             each kernel's time (CUDA events) beside its plain version's
+             and its bound, and the step
+             with the plain decoder and head (decoder_kernel=xla,
+             head_kernel=xla).
+
 Then one JSON line of per-kernel results and, last, the device line.
 """
 
 import json
 import os
+import re
 import shutil
 import socket
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PRESET = "vctk-multi"
+TRAIN_PRESET = "stretch"
+PEAK_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate
+PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
 T_CHECK = 640
 TEMP = 0.9
 FIRST_PUSH = 4096   # steps before the resumed check of the request phase
@@ -403,6 +430,406 @@ def request_phase(dc, flag, device, sr):
     return ms, plain_ms, err
 
 
+def bound(flops, nbytes):
+    """(least card time in ms, what binds it) for the given work."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def decode_bound(cfg, B, T):
+    """The decode loop's bound for B rows x T steps: each step's
+    products (30 layers of [past|h]@wff and z@[wr|ws], the condition
+    projection of every layer, the head) and, once, the weights, the
+    condition and the output ids (bf16)."""
+    R, S, d, mu, L = (cfg.residual_channels, cfg.skip_channels, cfg.d,
+                      cfg.mu, cfg.n_layers_total)
+    flops = 2 * B * T * (L * (2 * R * 2 * R + R * (R + S)) + d * L * 2 * R
+                         + S * S + S * mu)
+    weights = 2 * (L * (4 * R * R + R * (R + S) + R + S) + d * L * 2 * R
+                   + 2 * mu * R + S * S + S) + 4 * (S * mu + mu)
+    nbytes = weights + 2 * B * T * d + 4 * B * T + 2 * sum(cfg.dilations) * R
+    return bound(flops, nbytes)
+
+
+def chunk_work(mode, B, T, R, S, d, nl, mu, backward):
+    """(flops, bytes) of one chunk call, bf16: every product of the
+    layer chain (and, backward, the residual replay, the row-local chain
+    and the weight gradients); each input read once, each output written
+    once (the saved gates dominate)."""
+    N = B * T
+    per_row_layer = 2 * (2 * R * 2 * R + d * 2 * R + R * R + R * S)
+    flops = N * nl * per_row_layer
+    weights = 2 * nl * (4 * R * R + 2 * d * R + R * R + R + R * S)
+    lead = 4 * N + 2 * (2 * mu * R + R) if mode == 2 else 2 * N * R
+    gall = 2 * N * nl * 2 * R
+    if not backward:
+        tail = 2 * N * S if mode == 1 else 2 * S
+        nbytes = (lead + 2 * N * d + 2 * B * nl * 2 * R + weights + tail
+                  + 2 * N * R + 2 * N * S + gall)
+    else:
+        flops = 2 * flops + N * nl * 2 * R * R
+        dlead = 2 * (2 * mu * R + R) if mode == 2 else 2 * N * R
+        nbytes = (lead + 2 * N * d + 2 * B * nl * 2 * R + weights + gall
+                  + 2 * N * R + 2 * N * S + dlead + 2 * N * d
+                  + 2 * B * nl * 2 * R + weights)
+    return flops, nbytes
+
+
+def head_work(N, S, mu, backward):
+    flops = 2 * N * (S * S + S * mu) * (3 if backward else 1)
+    nbytes = 2 * N * S + 4 * N + 2 * (S * S + S) + 2 * S * mu + 4 * mu
+    if backward:
+        nbytes += 2 * N * S + 4 * (S * S + S + S * mu + mu)
+    return flops, nbytes
+
+
+def chunk_inputs(mode, cdt, device, B, T, cfg, seed=0):
+    """Seeded inputs of one 10-layer chunk at the model's widths, with
+    non-zero biases (init zeroes them, which would hide bias bugs)."""
+    import torch
+    from vqvae_tpu_torch.kernels import wavenet_train_cuda as wt
+    R, S, d, mu = cfg.residual_channels, cfg.skip_channels, cfg.d, cfg.mu
+    dils = cfg.dilations[:wt.MAX_CHUNK_LAYERS]
+    nl = len(dils)
+    g = torch.Generator().manual_seed(seed)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(device, cdt)
+    w = (rn(B, T, d), rn(B, nl, 2 * R, scale=0.3),
+         rn(nl, 2 * R, 2 * R, scale=(2 * R) ** -0.5),
+         rn(nl, d, 2 * R, scale=d ** -0.5), rn(nl, R, R, scale=R ** -0.5),
+         rn(nl, R, scale=0.1), rn(nl, R, S, scale=R ** -0.5))
+    wemb = bemb = None
+    if mode == wt.EMBED:
+        x = torch.randint(0, mu, (B, T), generator=g,
+                          dtype=torch.int32).to(device)
+        wemb, bemb, tail = rn(2, mu, R, scale=0.7), rn(R, scale=0.1), \
+            rn(S, scale=0.1)
+    else:
+        x = rn(B, T, R)
+        tail = rn(B, T, S, scale=0.5) if mode == wt.ACC else rn(S, scale=0.1)
+    cots = (rn(B, T, R, scale=0.01), rn(B, T, S, scale=0.01))
+    return (tuple(dils), mode, x, wemb, bemb, *w, tail), cots
+
+
+def head_inputs(cdt, device, N, cfg, seed=0):
+    import torch
+    S, mu = cfg.skip_channels, cfg.mu
+    g = torch.Generator().manual_seed(seed)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(device, cdt)
+    return (rn(N, S), torch.randint(0, mu, (N,), generator=g,
+                                    dtype=torch.int32).to(device),
+            rn(S, S, scale=S ** -0.5), rn(S, scale=0.1),
+            rn(S, mu, scale=S ** -0.5),
+            (torch.randn(mu, generator=g) * 0.1).to(device))
+
+
+def chunk_plain(args, cots=None, gall=None):
+    """The chunk's plain version: forward, or with cots the float32
+    gradients (embedding-table gradients included)."""
+    from vqvae_tpu_torch.kernels import wavenet_train_cuda as wt
+    dils, mode, x, wemb, bemb, cond, gc, wff, vc, wr, br, ws, tail = args
+    h0 = wt.embed_h(x, wemb, bemb) if mode == wt.EMBED else x
+    if cots is None:
+        return wt.fwd_plain(dils, h0, cond, gc, wff, vc, wr, br, ws, tail,
+                            mode == wt.ACC)
+    out = wt.bwd_plain(dils, h0, cond, gc, wff, vc, wr, br, ws, gall, *cots)
+    if mode != wt.EMBED:
+        return out + (None, None)
+    return (None,) + out[1:] + wt.embed_grads_plain(x, out[0], h0.dtype,
+                                                    wemb.shape[1])
+
+
+def compare(name, got, want, tol, errs):
+    """Each tensor pair within tol * max|want|; records the worst
+    absolute error under ``name``; returns the worst relative one."""
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a is None or b is None:
+            continue
+        scale = float(b.float().abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        check(bool(a.isfinite().all()), f"{name}: output {i} not finite")
+        check(err <= tol * scale, f"{name}: output {i} off by {err} "
+              f"(max {scale}, tol {tol})")
+        errs[name] = max(errs.get(name, 0.0), err)
+        worst = max(worst, err / (scale + 1e-30))
+    return worst
+
+
+def train_kernel_phase(cfg_all, device):
+    """The four training kernels against their plain versions at stretch
+    width, B=2, T=7680: outputs and every gradient."""
+    import torch
+    from vqvae_tpu_torch.kernels import head_ce_cuda as hc
+    from vqvae_tpu_torch.kernels import wavenet_train_cuda as wt
+    cfg = cfg_all.model
+    B, T = 2, cfg_all.data.length
+    errs = {}
+    for cdt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+        for mode, mname in ((wt.SEED, "seed"), (wt.ACC, "acc"),
+                            (wt.EMBED, "embed")):
+            t0 = time.monotonic()
+            args, cots = chunk_inputs(mode, cdt, device, B, T, cfg, mode)
+            fk = wt.fwd_kernel(*args)
+            fp = chunk_plain(args)
+            rf = compare("chunk_fwd", fk, fp, tol, errs)
+            bk = wt.bwd_kernel(*args[:-1], fp[2], *cots)
+            bp = chunk_plain(args, cots, fp[2])
+            rb = compare("chunk_bwd", bk, bp, tol, errs)
+            torch.cuda.synchronize()
+            say("train-kernels", t0, f"chunk {mname} {str(cdt)[6:]} B={B} "
+                f"T={T}: forward (h, skips, gates) max rel err {rf:.3g}, "
+                f"backward (every gradient) {rb:.3g} <= {tol}")
+        t0 = time.monotonic()
+        args = head_inputs(cdt, device, B * T, cfg)
+        g = torch.tensor(1.0, device=device)
+        rf = compare("head_ce_fwd", [hc.fwd_kernel(*args)],
+                     [hc.fwd_plain(*args)], tol, errs)
+        rb = compare("head_ce_bwd", hc.bwd_kernel(*args, g),
+                     hc.bwd_plain(*args, g), tol, errs)
+        say("train-kernels", t0, f"head+CE {str(cdt)[6:]} N={B * T}: loss "
+            f"rel err {rf:.3g}, gradients {rb:.3g} <= {tol}")
+    return errs
+
+
+def train_cli_phase():
+    """vqvae-torch-train --preset stretch --dataset sine --steps 3 as a
+    user runs it; returns its kernel launch counts."""
+    from vqvae_tpu_torch.cli.common import load_params
+    from vqvae_tpu_torch.configs import get_config
+    t0 = time.monotonic()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    out = tempfile.mkdtemp(prefix="chip_smoke_train_",
+                           dir=os.path.join(ROOT, "build"))
+    try:
+        r = subprocess.run(
+            [sys.executable, "-m", "vqvae_tpu_torch.cli.train", "--preset",
+             TRAIN_PRESET, "--dataset", "sine", "--steps", "3", "--out", out],
+            cwd=ROOT, capture_output=True, text=True, timeout=900)
+        if r.returncode != 0:
+            print(r.stdout[-4000:], r.stderr[-4000:], flush=True)
+            fail(f"the trainer exited with {r.returncode}")
+        recs = [json.loads(ln) for ln in open(os.path.join(out,
+                                                           "log.jsonl"))]
+        check(bool(recs) and all(np.isfinite(rec[k]) for rec in recs
+                                 for k in ("loss", "loss1", "loss2",
+                                           "loss3")),
+              f"non-finite or missing losses in log.jsonl: {recs}")
+        params = load_params(os.path.join(out, "weights.npz"),
+                             get_config(TRAIN_PRESET))
+        check(all(bool(np.isfinite(v.detach().numpy()).all())
+                  for v in params.state_dict().values()),
+              "the exported weights are not finite")
+        line = [ln for ln in r.stdout.splitlines()
+                if ln.startswith("kernel launches: ")]
+        check(len(line) == 1, "the trainer printed no launch counts")
+        counts = json.loads(line[0].split(": ", 1)[1])
+        check(all(v > 0 for v in counts.values()),
+              f"a training kernel was not launched: {counts}")
+        say("train-cli", t0, f"{TRAIN_PRESET}, 3 steps: exit 0; step 1 "
+            f"loss1 {recs[0]['loss1']:.4f} loss2 {recs[0]['loss2']:.4f} "
+            f"loss3 {recs[0]['loss3']:.4f}; weights.npz loads; launches "
+            f"{counts}")
+        return counts
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def cuda_ms(fn, reps=3):
+    """Mean ms per call of fn on the card (CUDA events, after one
+    warm-up call)."""
+    import torch
+    fn()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def profile_step(step, n):
+    """(wall ms, device-busy ms, top kernels by device time) over n
+    steps under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    rows = []
+    for ev in prof.key_averages():
+        # device-side events only: a CPU op's self device time repeats
+        # the time of the kernels it launched
+        if not str(ev.device_type).endswith("CUDA"):
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if us > 0:
+            rows.append((us / 1e3, ev.key, ev.count))
+    rows.sort(reverse=True)
+    return wall, sum(r[0] for r in rows), rows
+
+
+def train_time_phase(cfg_all, device, errs):
+    """stretch at B=64, T=7680, bf16: step time, busy share, split by
+    kernel, peak memory, each kernel against its plain version (worst
+    absolute errors added to ``errs``) and timed beside it and its bound,
+    and the plain-decoder step.  Returns the per-kernel timing entries."""
+    import dataclasses
+    import torch
+    from vqvae_tpu_torch.audio.datasets import SineDataset
+    from vqvae_tpu_torch.audio.loader import BatchLoader
+    from vqvae_tpu_torch.kernels import head_ce_cuda as hc
+    from vqvae_tpu_torch.kernels import wavenet_train_cuda as wt
+    from vqvae_tpu_torch.train.state import create_train_state
+    from vqvae_tpu_torch.train.step import train_step
+    cfg = cfg_all
+    B, T = cfg.train.batch_size, cfg.data.length
+    loader = BatchLoader(SineDataset(cfg.data), B, seed=0)
+    batches = [tuple(torch.from_numpy(a).to(device) for a in next(loader))
+               for _ in range(2)]
+
+    def stepper(c):
+        state = create_train_state(c, device)
+        it = [0]
+
+        def step():
+            wav, spk = batches[it[0] % 2]
+            it[0] += 1
+            return train_step(state, wav, spk, c)
+        return state, step
+
+    t0 = time.monotonic()
+    state, step = stepper(cfg)
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t1 = time.perf_counter()
+    n = 3
+    for _ in range(n):
+        m = step()
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t1) / n
+    peak = torch.cuda.max_memory_allocated(device)
+    check(np.isfinite(float(m["loss"])), "non-finite loss at B=64")
+    wall, busy, rows = profile_step(step, 2)
+    say("train-time", t0, f"{TRAIN_PRESET} B={B} T={T} bf16: "
+        f"{step_ms:.1f} ms/step ({B * T / step_ms * 1e3 / 16000:.2f} s of "
+        f"audio per s), peak memory {peak / 2**30:.2f} GiB; device busy "
+        f"{busy:.1f} of {wall:.1f} ms over 2 steps "
+        f"({100 * busy / wall:.1f}%)")
+    for ms_, key, count in rows[:14]:
+        print(f"    {100 * ms_ / busy:5.1f}%  {ms_ / 2:9.3f} ms/step  "
+              f"x{count // 2:<4d} {key[:90]}", flush=True)
+    del state, step
+
+    # each kernel at B=64, the main path's split-K partitioning, against
+    # its plain version (outputs and every gradient, 3e-2 of max), then
+    # timed beside the plain version and its bound
+    t0 = time.monotonic()
+    mc = cfg.model
+    R, S, d, mu = mc.residual_channels, mc.skip_channels, mc.d, mc.mu
+    nl = wt.MAX_CHUNK_LAYERS
+    per = {"chunk_fwd": {}, "chunk_bwd": {}}
+    n_chunks = mc.n_layers_total // nl
+    for mode in (wt.EMBED, wt.ACC):
+        args, cots = chunk_inputs(mode, torch.bfloat16, device, B, T, mc)
+        fp = chunk_plain(args)
+        rf = compare("chunk_fwd", wt.fwd_kernel(*args), fp, 3e-2, errs)
+        gall = fp[2]
+        del fp
+        rb = compare("chunk_bwd", wt.bwd_kernel(*args[:-1], gall, *cots),
+                     chunk_plain(args, cots, gall), 3e-2, errs)
+        say("train-time", t0, f"chunk {'embed' if mode == wt.EMBED else 'acc'}"
+            f" bfloat16 B={B} T={T}: forward max rel err {rf:.3g}, backward "
+            f"{rb:.3g} <= 0.03")
+        ms_f = cuda_ms(lambda: wt.fwd_kernel(*args))
+        ms_b = cuda_ms(lambda: wt.bwd_kernel(*args[:-1], gall, *cots))
+        pf = cuda_ms(lambda: chunk_plain(args), reps=1)
+        pb = cuda_ms(lambda: chunk_plain(args, cots, gall), reps=1)
+        per["chunk_fwd"][mode] = (ms_f, pf, chunk_work(mode, B, T, R, S, d,
+                                                       nl, mu, False))
+        per["chunk_bwd"][mode] = (ms_b, pb, chunk_work(mode, B, T, R, S, d,
+                                                       nl, mu, True))
+        del args, cots, gall
+        torch.cuda.empty_cache()
+    out = {}
+    weights = {wt.EMBED: 1, wt.ACC: n_chunks - 1}   # launches per step
+    for name, by_mode in per.items():
+        k = sum(weights.values())
+        ms_ = sum(w * by_mode[m][0] for m, w in weights.items()) / k
+        plain = sum(w * by_mode[m][1] for m, w in weights.items()) / k
+        fl = sum(w * by_mode[m][2][0] for m, w in weights.items()) / k
+        by = sum(w * by_mode[m][2][1] for m, w in weights.items()) / k
+        bms, bby = bound(fl, by)
+        out[name] = dict(ms=ms_, plain_ms=plain, bound_ms=bms, bound_by=bby)
+        say("train-time", t0, f"{name} per launch (embed x1, acc x"
+            f"{n_chunks - 1} averaged): kernel {ms_:.2f} ms, plain "
+            f"{plain:.2f} ms, bound {bms:.3f} ms ({bby}); embed "
+            f"{by_mode[wt.EMBED][0]:.2f} ms, acc {by_mode[wt.ACC][0]:.2f} ms")
+    args = head_inputs(torch.bfloat16, device, B * T, mc)
+    g = torch.tensor(1.0, device=device)
+    rf = compare("head_ce_fwd", [hc.fwd_kernel(*args)], [hc.fwd_plain(*args)],
+                 3e-2, errs)
+    rb = compare("head_ce_bwd", hc.bwd_kernel(*args, g),
+                 hc.bwd_plain(*args, g), 3e-2, errs)
+    say("train-time", t0, f"head+CE bfloat16 N={B * T}: loss rel err "
+        f"{rf:.3g}, gradients {rb:.3g} <= 0.03")
+    for name, kern, plain, bwd in (
+            ("head_ce_fwd", lambda: hc.fwd_kernel(*args),
+             lambda: hc.fwd_plain(*args), False),
+            ("head_ce_bwd", lambda: hc.bwd_kernel(*args, g),
+             lambda: hc.bwd_plain(*args, g), True)):
+        ms_, pms = cuda_ms(kern), cuda_ms(plain, reps=1)
+        bms, bby = bound(*head_work(B * T, S, mu, bwd))
+        out[name] = dict(ms=ms_, plain_ms=pms, bound_ms=bms, bound_by=bby)
+        say("train-time", t0, f"{name}: kernel {ms_:.2f} ms, plain "
+            f"{pms:.2f} ms, bound {bms:.3f} ms ({bby})")
+    del args
+    torch.cuda.empty_cache()
+
+    # the step with the plain decoder and head, at the largest B that fits
+    t0 = time.monotonic()
+    plain_cfg = cfg.replace(model=dataclasses.replace(
+        mc, decoder_kernel="xla", head_kernel="xla", embed_in_kernel=False))
+    for b in (B, B // 2, B // 4):
+        try:
+            c = plain_cfg.replace(train=dataclasses.replace(
+                plain_cfg.train, batch_size=b))
+            batches[:] = [(w[:b], s_[:b]) for w, s_ in batches]
+            state, step = stepper(c)
+            step()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(2):
+                m = step()
+            torch.cuda.synchronize()
+            pms = 1e3 * (time.perf_counter() - t1) / 2
+            check(np.isfinite(float(m["loss"])), "plain step: non-finite")
+            say("train-time", t0, f"plain decoder + head step "
+                f"(decoder_kernel=xla, head_kernel=xla) at B={b}: "
+                f"{pms:.1f} ms/step" + ("" if b == B else
+                                        f" (B={B} did not fit)"))
+            break
+        except torch.cuda.OutOfMemoryError:
+            state = step = None
+            torch.cuda.empty_cache()
+    else:
+        say("train-time", t0, "plain decoder + head step: did not fit at "
+            f"B={B // 4}")
+    return out
+
+
 def main():
     t0 = time.monotonic()
     smi = nvidia_smi()
@@ -421,13 +848,26 @@ def main():
         f"{torch.version.cuda}; {torch.cuda.device_count()} device(s)")
 
     t0 = time.monotonic()
-    dc._library()
-    info = build.builds.get("vqvae_decode")
-    regs = [ln.strip() for ln in (info or {}).get("log", "").splitlines()
-            if "registers" in ln]
-    built = os.path.basename((info or {}).get("path", "cached build"))
-    say("build", t0, f"decode.cu -> {built}"
-        + (f"; {'; '.join(regs)}" if regs else ""))
+    sources = {"vqvae_decode": "decode.cu",
+               "vqvae_wavenet_train": "wavenet_train.cu",
+               "vqvae_head_ce": "head_ce.cu"}
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        # one nvcc per source, all started together
+        for f in [pool.submit(build.build, k, [v])
+                  for k, v in sources.items()]:
+            f.result()
+    for name, src in sources.items():
+        info = build.builds.get(name)
+        log = (info or {}).get("log", "")
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores",
+                                                log))
+        built = os.path.basename((info or {}).get("path", "cached build"))
+        say("build", t0, f"{src} -> {built}"
+            + (f" ({info['seconds']:.1f} s)" if info else "")
+            + (f"; -Xptxas -v: {len(regs)} kernels, registers "
+               f"{min(regs)}..{max(regs)}, spill stores {spills} bytes"
+               if regs else ""))
 
     cfg_all = get_config(PRESET)
     flag = cfg_all.model
@@ -435,17 +875,41 @@ def main():
     resume_phase(dc, flag, device)
     launched = serve_phase(flag, cfg_all, device, dc)
     ms, plain_ms, err = request_phase(dc, flag, device, cfg_all.data.sr)
-
-    print(json.dumps({"kernels": [{
+    T_req = cfg_all.data.sr // flag.hop * flag.hop
+    bms, bby = decode_bound(flag, 1, T_req)
+    kernels = [{
         "name": "decode",
         "route": "cuda",
         "source": "vqvae_tpu_torch/csrc/decode.cu",
-        "replaces": "vqvae_tpu/kernels/decode_pallas.py:77",
+        "replaces": "vqvae_tpu/kernels/decode_pallas.py:354",
         "launches": launched,
         "max_abs_err": max(err, *worst.values()),
         "ms": ms,
         "plain_ms": plain_ms,
-    }]}), flush=True)
+        "bound_ms": bms,
+        "bound_by": bby,
+        "library_ms": None,
+    }]
+
+    train_cfg = get_config(TRAIN_PRESET)
+    errs = train_kernel_phase(train_cfg, device)
+    counts = train_cli_phase()
+    timing = train_time_phase(train_cfg, device, errs)
+    for name, src, replaces in (
+            ("chunk_fwd", "wavenet_train.cu",
+             "vqvae_tpu/kernels/wavenet_train_pallas.py:586"),
+            ("chunk_bwd", "wavenet_train.cu",
+             "vqvae_tpu/kernels/wavenet_train_pallas.py:727"),
+            ("head_ce_fwd", "head_ce.cu",
+             "vqvae_tpu/kernels/head_ce_pallas.py:170"),
+            ("head_ce_bwd", "head_ce.cu",
+             "vqvae_tpu/kernels/head_ce_pallas.py:201")):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"vqvae_tpu_torch/csrc/{src}",
+                        "replaces": replaces, "launches": counts[name],
+                        "max_abs_err": errs[name], **timing[name],
+                        "library_ms": None})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

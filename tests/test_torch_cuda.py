@@ -101,3 +101,97 @@ def test_kernel_rejects_bad_inputs(cuda):
         dc.teacher_logits(gp, cfg, ids + cfg.mu, cond, gcond)
     with pytest.raises(TypeError):
         dc.generate_ids(gp._replace(wff=gp.wff.half()), cfg, cond, gcond)
+
+
+# ---- the training kernels (csrc/wavenet_train.cu, csrc/head_ce.cu) ----
+
+from vqvae_tpu_torch.kernels import head_ce_cuda as hc          # noqa: E402
+from vqvae_tpu_torch.kernels import wavenet_train_cuda as wt    # noqa: E402
+
+TRAIN_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+def _rel_err(got, want):
+    return float((got.float() - want.float()).abs().max()) / (
+        float(want.float().abs().max()) + 1e-30)
+
+
+def _chunk_inputs(mode, cdt, dev, B=2, T=300, R=64, S=256, d=64, mu=256,
+                  dils=(1, 2, 4, 8, 16), seed=0):
+    """Seeded chunk inputs with non-zero biases, on ``dev``."""
+    g = torch.Generator().manual_seed(seed)
+    nl = len(dils)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, cdt)
+    w = dict(cond=rn(B, T, d), gc=rn(B, nl, 2 * R, scale=0.3),
+             wff=rn(nl, 2 * R, 2 * R, scale=0.1),
+             vc=rn(nl, d, 2 * R, scale=0.1), wr=rn(nl, R, R, scale=0.1),
+             br=rn(nl, R, scale=0.1), ws=rn(nl, R, S, scale=0.1))
+    wemb = bemb = None
+    if mode == wt.EMBED:
+        x = torch.randint(0, mu, (B, T), generator=g,
+                          dtype=torch.int32).to(dev)
+        wemb, bemb, tail = rn(2, mu, R, scale=0.5), rn(R, scale=0.1), \
+            rn(S, scale=0.1)
+    else:
+        x = rn(B, T, R, scale=0.5)
+        tail = rn(B, T, S, scale=0.3) if mode == wt.ACC else rn(S, scale=0.1)
+    cots = (rn(B, T, R, scale=0.1), rn(B, T, S, scale=0.1))
+    return (tuple(dils), mode, x, wemb, bemb, *w.values(), tail), cots
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", [wt.SEED, wt.ACC, wt.EMBED])
+def test_chunk_kernel_vs_plain(cuda, mode, cdt):
+    args, (dh, dsk) = _chunk_inputs(mode, cdt, cuda)
+    dils, _, x, wemb, bemb, cond, gc, wff, vc, wr, br, ws, tail = args
+    before = (wt.launches_fwd, wt.launches_bwd)
+    got = wt.fwd_kernel(*args)
+    h0 = wt.embed_h(x, wemb, bemb) if mode == wt.EMBED else x
+    want = wt.fwd_plain(dils, h0, cond, gc, wff, vc, wr, br, ws, tail,
+                        mode == wt.ACC)
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) <= TRAIN_TOL[cdt]
+    gall = want[2]
+    got = wt.bwd_kernel(*args[:-1], gall, dh, dsk)
+    want = wt.bwd_plain(dils, h0, cond, gc, wff, vc, wr, br, ws, gall, dh,
+                        dsk)
+    if mode == wt.EMBED:
+        want = (None,) + want[1:] + wt.embed_grads_plain(x, want[0], cdt,
+                                                         wemb.shape[1])
+    for a, b in zip(got, want):
+        if b is not None:
+            assert _rel_err(a, b) <= TRAIN_TOL[cdt]
+    assert (wt.launches_fwd, wt.launches_bwd) == (before[0] + 1,
+                                                  before[1] + 1)
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_head_ce_kernel_vs_plain(cuda, cdt):
+    g = torch.Generator().manual_seed(1)
+    N, S, mu = 1000, 256, 256     # N is not a multiple of the row tile
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(cuda, cdt)
+    args = (rn(N, S), torch.randint(0, mu, (N,), generator=g,
+                                    dtype=torch.int32).to(cuda),
+            rn(S, S, scale=0.1), rn(S, scale=0.1), rn(S, mu, scale=0.1),
+            (torch.randn(mu, generator=g) * 0.1).to(cuda))
+    lk, lp = hc.fwd_kernel(*args), hc.fwd_plain(*args)
+    assert abs(float(lk) - float(lp)) <= TRAIN_TOL[cdt] * abs(float(lp))
+    gg = torch.tensor(1.3, device=cuda)
+    for a, b in zip(hc.bwd_kernel(*args, gg), hc.bwd_plain(*args, gg)):
+        assert _rel_err(a, b) <= TRAIN_TOL[cdt]
+
+
+def test_chunk_kernel_rejects_bad_inputs(cuda):
+    args, _ = _chunk_inputs(wt.EMBED, torch.float32, cuda, T=40)
+    bad = list(args)
+    bad[2] = args[2] + 256                 # ids outside the table
+    with pytest.raises(ValueError, match="ids"):
+        wt.fwd_kernel(*bad)
+    bad = list(args)
+    bad[6] = args[6][:, :1]                # gc of the wrong layer count
+    with pytest.raises(ValueError, match="gc"):
+        wt.fwd_kernel(*bad)

@@ -75,7 +75,8 @@ def test_codes_match_jax_on_clear_frames(setup):
     zt = apply_encoder(params.encoder, cfg, torch.from_numpy(wav))
     e_st, e, idx = quantize(params.vq, zt)
     assert torch.equal(idx, torch.from_numpy(got))
-    assert torch.equal(e, params.vq.codebook[idx]) and torch.equal(e_st, e)
+    assert torch.equal(e, params.vq.codebook[idx])
+    assert torch.equal(e_st, zt + (e - zt))   # the straight-through value
 
 
 def _one_shot(params, cfg, wav):

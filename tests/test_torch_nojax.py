@@ -12,6 +12,10 @@ def test_port_imports_without_jax():
         "import sys\n"
         "import vqvae_tpu_torch.cli.serve, vqvae_tpu_torch.convert\n"
         "import vqvae_tpu_torch.infer.fastgen, vqvae_tpu_torch.kernels.build\n"
+        "import vqvae_tpu_torch.cli.train, vqvae_tpu_torch.train.step\n"
+        "import vqvae_tpu_torch.train.loop, vqvae_tpu_torch.audio.loader\n"
+        "import vqvae_tpu_torch.kernels.wavenet_train_cuda\n"
+        "import vqvae_tpu_torch.kernels.head_ce_cuda\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'vqvae_tpu'))\n"
         "print(bad)\n"

@@ -99,3 +99,24 @@ def load_params(model_path: str, cfg: Config, device="cpu"):
     params = load_weights_npz(model_path, template, device)
     print(f"loaded weights-only snapshot {model_path}")
     return params
+
+
+def make_dataset(cfg: Config, kind: str):
+    """(train dataset, valid dataset).  Only the synthetic ``sine`` set
+    is ported: the repository holds no VCTK corpus."""
+    if kind != "sine":
+        raise SystemExit(f"--dataset {kind} is not ported yet (needs the "
+                         "corpus and ROADMAP A6); use --dataset sine")
+    from vqvae_tpu_torch.audio.datasets import SineDataset
+    return SineDataset(cfg.data), SineDataset(cfg.data, f0=137.0)
+
+
+def resolve_device(device: str):
+    """The run's device; a CUDA device without a GPU is an error (the
+    port never moves to the CPU by itself)."""
+    import torch
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {device}: no CUDA device is available "
+                           "(use --device cpu to run on the CPU)")
+    return dev

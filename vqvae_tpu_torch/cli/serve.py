@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from vqvae_tpu_torch.cli.common import add_config_args, load_params, \
-    resolve_config
+    resolve_config, resolve_device
 from vqvae_tpu_torch.infer.enc_streaming import StreamingEncoder
 from vqvae_tpu_torch.infer.kernel_stream import KernelStreamDecoder
 from vqvae_tpu_torch.kernels import decode_cuda
@@ -67,15 +67,6 @@ def pcm16_to_float(b64: str) -> np.ndarray:
 def float_to_pcm16(wav: np.ndarray) -> str:
     pcm = np.round(wav.clip(-1.0, 1.0) * 32767.0).astype("<i2")
     return base64.b64encode(pcm.tobytes()).decode("ascii")
-
-
-def resolve_device(device: str) -> torch.device:
-    """The serving device; a CUDA device without a GPU is an error."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {device}: no CUDA device is available "
-                           "(use --device cpu to serve on the CPU)")
-    return dev
 
 
 class Codec:

@@ -41,9 +41,12 @@ class DataConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Model shape (reference: ``opt.py`` globals consumed by ``net.py``).
-    The kernel switches (``decoder_kernel`` ...) select training-path
-    kernels that the port does not have yet; they are carried so that
-    configs round-trip unchanged."""
+    Kernel switches: ``decoder_kernel`` ``xla`` (plain layer loop) or
+    ``pallas_sg`` (the CUDA chunk kernels); ``head_kernel`` ``xla`` or
+    ``pallas`` (the CUDA head+CE kernels); ``embed_in_kernel``.  The
+    others (``decoder_kernel="pallas"``, ``remat``, ``bwd_time_windows``,
+    ``encoder_kernel``) are carried so configs round-trip, and raise
+    where a path would need them."""
 
     mu: int = 256
     mulaw_mode: str = "round"
@@ -103,8 +106,10 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Training engine settings (not used by the port yet; mirrored so
-    a run's config.json loads whole)."""
+    """Training engine settings.  The port's one-device trainer reads
+    the optimizer, batch, step, logging, export and seed fields; the
+    mesh, loader, eval and profiling fields are carried so a run's
+    config.json loads whole."""
 
     batch_size: int = 16
     lr: float = 2e-4

@@ -6,7 +6,10 @@ does: the tree path joined with ``/`` (``decoder/layers/wf``,
 the port's ``ParamTree`` from such a flat dict of numpy arrays (a JAX
 ``export_weights`` ``.npz`` loads straight into it), and
 ``to_numpy_tree`` is the inverse; ``nest`` turns a flat dict back into
-the nested dict/list tree the JAX package uses.
+the nested dict/list tree the JAX package uses.  The EMA codebook
+state (JAX ``VQState(count [K], sum [K, d])``) crosses with
+``vq_state_from_numpy`` / ``vq_state_to_numpy``; optimizer moments are
+not carried.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from vqvae_tpu_torch.models.params import ParamTree, flat_state
+from vqvae_tpu_torch.models.vq import VQState
 
 
 def flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -56,13 +60,16 @@ def nest(flat: Mapping[str, np.ndarray]):
 
 
 def from_numpy_tree(flat: Mapping[str, np.ndarray], device="cpu",
-                    dtype: torch.dtype | None = None) -> ParamTree:
+                    dtype: torch.dtype | None = None,
+                    trainable: bool = False) -> ParamTree:
     """Flat ``{"decoder/layers/wf": array, ...}`` -> the port's params
-    (exact copies, or cast to ``dtype``)."""
+    (exact copies, or cast to ``dtype``); ``trainable`` for training
+    from a JAX-initialised state."""
     def tensor(a):
         t = torch.from_numpy(np.array(a, copy=True))
         return t.to(device=device, dtype=dtype or t.dtype)
-    return ParamTree(nest({k: tensor(v) for k, v in flat.items()}))
+    return ParamTree(nest({k: tensor(v) for k, v in flat.items()}),
+                     trainable)
 
 
 def to_numpy_tree(params: torch.nn.Module) -> Dict[str, np.ndarray]:
@@ -81,3 +88,18 @@ def x_last_to_xoh(x_last: np.ndarray, mu: int, dtype=np.float32
     """The port's ``x_last`` -> JAX's one-hot ``xoh`` ``[B, mu]``."""
     return (np.arange(mu)[None, :] == np.asarray(x_last)[:, None]
             ).astype(dtype)
+
+
+def vq_state_from_numpy(count: np.ndarray, total: np.ndarray,
+                        device="cpu") -> VQState:
+    """JAX ``VQState`` fields (``count [K]``, ``sum [K, d]``) -> the
+    port's ``VQState`` (float32 copies)."""
+    def tensor(a):
+        return torch.from_numpy(np.array(a, np.float32, copy=True)).to(device)
+    return VQState(count=tensor(count), sum=tensor(total))
+
+
+def vq_state_to_numpy(state: VQState) -> Dict[str, np.ndarray]:
+    """The port's ``VQState`` -> ``{"count": [K], "sum": [K, d]}``."""
+    return {"count": state.count.detach().cpu().numpy(),
+            "sum": state.sum.detach().cpu().numpy()}

@@ -42,10 +42,11 @@ def _nvcc() -> str:
 
 
 def build(name: str, sources: list[str]) -> Path:
-    """Path of ``lib<name>-<hash>.so`` built from ``csrc/<sources>``."""
+    """Path of ``lib<name>-<hash>.so`` built from ``csrc/<sources>``
+    (the hash covers the shared headers ``csrc/*.cuh`` too)."""
     srcs = [CSRC / s for s in sources]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + sorted(CSRC.glob("*.cuh")):
         h.update(s.read_bytes())
     out_dir = build_dir()
     out = out_dir / f"lib{name}-{h.hexdigest()[:16]}.so"

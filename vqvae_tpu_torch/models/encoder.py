@@ -30,6 +30,10 @@ def init_encoder(cfg: ModelConfig, generator=None, device="cpu") -> Dict:
 def apply_encoder(params, cfg: ModelConfig, wav: torch.Tensor
                   ) -> torch.Tensor:
     """``[B, T]`` waveform -> z_e ``[B, T/hop, d]`` in float32."""
+    if cfg.encoder_kernel != "xla":
+        raise NotImplementedError(
+            f"encoder_kernel={cfg.encoder_kernel!r} (the fused encoder) is "
+            "not ported yet (ROADMAP B11); use 'xla'")
     cdt = cfg.cdtype
     x = wav[..., None].to(cdt)
     for layer in params["layers"]:

@@ -3,7 +3,7 @@
 The JAX package keeps its parameters as nested dicts (and one list, the
 encoder layers) of arrays.  ``ParamTree`` holds the same tree as
 modules: dicts become submodules, lists ``nn.ModuleList``s, arrays
-frozen ``nn.Parameter``s in their JAX shapes (``decoder.layers.wf`` is
+``nn.Parameter``s in their JAX shapes (``decoder.layers.wf`` is
 ``[L, 2, R, 2R]``, conv weights ``[k, C_in, C_out]``).  So
 ``state_dict()`` keys with ``.`` -> ``/`` are exactly the keys
 ``vqvae_tpu/train/checkpoint.py::export_weights`` writes.
@@ -21,16 +21,21 @@ from torch import nn
 
 
 class ParamTree(nn.Module):
-    def __init__(self, tree: Mapping):
+    """``trainable=False`` (serving) freezes every leaf; training builds
+    the tree with ``trainable=True``."""
+
+    def __init__(self, tree: Mapping, trainable: bool = False):
         super().__init__()
         for k, v in tree.items():
             if isinstance(v, Mapping):
-                self.add_module(k, ParamTree(v))
+                self.add_module(k, ParamTree(v, trainable))
             elif isinstance(v, (list, tuple)):
-                self.add_module(k, nn.ModuleList([ParamTree(x) for x in v]))
+                self.add_module(k, nn.ModuleList(
+                    [ParamTree(x, trainable) for x in v]))
             else:
                 self.register_parameter(
-                    k, nn.Parameter(torch.as_tensor(v), requires_grad=False))
+                    k, nn.Parameter(torch.as_tensor(v).detach(),
+                                    requires_grad=trainable))
 
     def __getitem__(self, key: str):
         return getattr(self, key)

@@ -1,7 +1,8 @@
 """WaveNet decoder (port of ``vqvae_tpu/models/wavenet.py``).
 
 ``apply_decoder`` is the teacher-forced decoder: the in-port oracle
-that the per-sample ``decoder_step`` is held against.  Weights keep
+that the per-sample ``decoder_step`` is held against, and, split as
+``_head(decoder_skips(...))``, the training forward.  Weights keep
 the JAX layouts; ``make_gen_params`` repacks them into the fused
 generation layout the decode kernel reads:
 
@@ -112,10 +113,41 @@ def apply_decoder(params, cfg: ModelConfig, ids_in: torch.Tensor,
                   cond: torch.Tensor, speaker: torch.Tensor) -> torch.Tensor:
     """Teacher-forced decode: ids ``[B, T]``, cond ``[B, T, d]``,
     speaker ``[B]`` -> logits ``[B, T, mu]`` (float32)."""
+    return _head(params, cfg,
+                 decoder_skips(params, cfg, ids_in, cond, speaker))
+
+
+def decoder_skips(params, cfg: ModelConfig, ids_in: torch.Tensor,
+                  cond: torch.Tensor, speaker: torch.Tensor) -> torch.Tensor:
+    """The gated-residual stack up to the head: summed skips
+    ``[B, T, S]`` in the compute dtype.  ``decoder_kernel`` picks the
+    path: ``xla`` the plain layer loop, ``pallas_sg`` the fused chunk
+    kernels with saved gates (``kernels/wavenet_train_cuda.py``)."""
     R, cdt = cfg.residual_channels, cfg.cdtype
+    if cfg.remat:
+        raise NotImplementedError(
+            "remat=True is not ported yet (ROADMAP B3: the recompute "
+            "backward); use remat=False")
+    if cfg.decoder_kernel == "pallas":
+        raise NotImplementedError(
+            "decoder_kernel='pallas' (the recompute backward of the fused "
+            "chunk) is not ported yet (ROADMAP B3); use 'pallas_sg' or "
+            "'xla'")
+    if cfg.bwd_time_windows > 1:
+        raise NotImplementedError(
+            "bwd_time_windows > 1 (the time-windowed backward) is not "
+            "ported yet (ROADMAP B12)")
     lay = params["layers"]
     cond = cond.to(cdt)
     gcond = global_cond(params, cfg, speaker)
+    if cfg.decoder_kernel == "pallas_sg":
+        from vqvae_tpu_torch.kernels.wavenet_train_cuda import decoder_stack
+        if cfg.embed_in_kernel:
+            return decoder_stack(params, cfg, None, cond, gcond, ids=ids_in)
+        return decoder_stack(params, cfg, embed_inputs(params, cfg, ids_in),
+                             cond, gcond)
+    if cfg.decoder_kernel != "xla":
+        raise ValueError(f"unknown decoder_kernel {cfg.decoder_kernel!r}")
     h = embed_inputs(params, cfg, ids_in)
     skips = torch.zeros(h.shape[0], h.shape[1], cfg.skip_channels,
                         dtype=cdt, device=h.device)
@@ -126,7 +158,7 @@ def apply_decoder(params, cfg: ModelConfig, ids_in: torch.Tensor,
         z = _gate(u, R)
         h = h + z @ lay["wr"][li].to(cdt) + lay["br"][li].to(cdt)
         skips = skips + z @ lay["ws"][li].to(cdt) + lay["bs"][li].to(cdt)
-    return _head(params, cfg, skips)
+    return skips
 
 
 def _head(params, cfg: ModelConfig, skips: torch.Tensor) -> torch.Tensor:

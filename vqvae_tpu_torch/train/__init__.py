@@ -1,1 +1,1 @@
-"""Weights-only checkpoint interop."""
+"""Training: state, step, loop, metrics and weights-only export."""
