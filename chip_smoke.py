@@ -32,17 +32,23 @@ nonzero:
              within 3e-2 of max|logits| of the plain version and the
              sampled picks against the plain pick.
 
-7. train-kernels — the four training kernels (chunk forward and
-             save-gates backward in the bias-seeded, chained and embed
-             variants; head + CE forward and backward) against their plain
-             PyTorch versions at stretch width (B=2, T=7680, 10 layers,
-             seeded weights with non-zero biases): every output and every
-             gradient within 1e-4 (float32) / 3e-2 (bfloat16) of its max.
+7. train-kernels — the training kernels (chunk forward; the save-gates,
+             recompute and time-windowed backwards, the last at 2 and 4
+             windows; in the bias-seeded, chained and embed variants
+             where they apply; head + CE forward and backward) against
+             their plain PyTorch versions at stretch width (B=2, T=7680,
+             10 layers, seeded weights with non-zero biases): every output
+             and every gradient within 1e-4 (float32) / 3e-2 (bfloat16) of
+             its max.  The VQ search at N = 1920 and 7680 (K=512, d=64):
+             ids equal to the plain version's on every row whose two best
+             scores differ by more than 1e-4 of the largest score; the rows
+             left out are counted.
 8. train-cli — ``python3 -m vqvae_tpu_torch.cli.train --preset stretch
              --dataset sine --steps 3`` as a subprocess (B=64, T=7680,
              bf16): exits 0, finite losses in log.jsonl, weights.npz loads
              through ``cli/common.py::load_params``, and the launch counts
-             it prints show every training kernel launched.
+             it prints show the kernels of its path launched (chunk
+             forward, save-gates backward, head + CE).
 9. train-time — stretch at B=64: step time on the host clock around
              synchronised steps, the device's busy share and the split by
              kernel (torch.profiler), peak memory; each training kernel
@@ -53,6 +59,24 @@ nonzero:
              and its bound, and the step
              with the plain decoder and head (decoder_kernel=xla,
              head_kernel=xla).
+10. train-cli-vctk — a synthetic VCTK-layout tree under build/ (4
+             speakers x 5 utterances, 48 kHz int16 tones between silences,
+             so trimming and resampling run), then ``python3 -m
+             vqvae_tpu_torch.cli.train --preset vctk-multi --dataset vctk
+             --root <tree> --impl pallas --eval-every 2`` (B=16, T=7680,
+             bf16, checkpoint_every=2): 4 steps straight; 2 steps and
+             ``--resume`` to 4, whose weights.npz must equal the straight
+             run's at rtol 1e-6; 2 steps with ``--bwd-windows 4``.  Each
+             exits 0 with finite losses and val_ keys in log.jsonl, and
+             its launch counts show the recompute (or windowed) backward
+             and the VQ kernel launched.
+11. train-time-vctk — vctk-multi at its preset B=16, T=7680, bf16 with
+             the VQ kernel: step time and peak memory with the recompute
+             backward, the windowed backward (4 windows), saved gates and
+             the plain decoder; the recompute step's busy share and split
+             by kernel; the recompute and windowed backwards and the VQ
+             search against their plain versions at these shapes, each
+             timed beside its plain version and its bound.
 
 Then one JSON line of per-kernel results and, last, the device line.
 """
@@ -73,7 +97,9 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PRESET = "vctk-multi"
 TRAIN_PRESET = "stretch"
+VQ_MARGIN = 1e-4        # near-tie margin of the VQ id check, of max|score|
 PEAK_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate
+PEAK_F32 = 67e12        # H100 SXM float32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
 T_CHECK = 640
 TEMP = 0.9
@@ -430,9 +456,10 @@ def request_phase(dc, flag, device, sr):
     return ms, plain_ms, err
 
 
-def bound(flops, nbytes):
-    """(least card time in ms, what binds it) for the given work."""
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+def bound(flops, nbytes, peak=PEAK_FLOPS):
+    """(least card time in ms, what binds it) for the given work at the
+    given operation rate."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -474,6 +501,25 @@ def chunk_work(mode, B, T, R, S, d, nl, mu, backward):
                   + 2 * N * R + 2 * N * S + dlead + 2 * N * d
                   + 2 * B * nl * 2 * R + weights)
     return flops, nbytes
+
+
+def rec_work(mode, B, T, R, S, d, nl, mu, expand=1.0):
+    """(flops, bytes) of one recompute backward, bf16: the save-gates
+    backward's products plus pass 1's u products (the residual replay is
+    in both), pass 1 over ``expand`` times the rows (the windowed
+    backward's halo: (Tc + A) / Tc); no saved gates are read."""
+    flops, nbytes = chunk_work(mode, B, T, R, S, d, nl, mu, True)
+    N = B * T
+    replay = N * nl * 2 * R * R
+    pass1 = N * nl * 2 * (2 * R * 2 * R + d * 2 * R + R * R)
+    return (flops - replay + expand * pass1,
+            nbytes - 2 * N * nl * 2 * R)
+
+
+def vq_work(N, K, d):
+    """(flops, bytes) of the VQ search: 2·N·K·d float32 products plus the
+    scale and norm per score; z, the codebook and the ids once."""
+    return 2 * N * K * d + 2 * N * K, 4 * (N * d + K * d + N)
 
 
 def head_work(N, S, mu, backward):
@@ -543,6 +589,56 @@ def chunk_plain(args, cots=None, gall=None):
                                                     wemb.shape[1])
 
 
+def chunk_rec_plain(args, cots, windows=0):
+    """The recompute (windows > 1: time-windowed) backward's plain
+    version: float32 gradients, embedding-table gradients included."""
+    from vqvae_tpu_torch.kernels import wavenet_train_cuda as wt
+    dils, mode, x, wemb, bemb, cond, gc, wff, vc, wr, br, ws, tail = args
+    w = (cond, gc, wff, vc, wr, br, ws)
+    if windows > 1:
+        return wt.bwd_win_plain(dils, windows, x, *w, *cots) + (None, None)
+    h0 = wt.embed_h(x, wemb, bemb) if mode == wt.EMBED else x
+    out = wt.bwd_rec_plain(dils, h0, *w, *cots)
+    if mode != wt.EMBED:
+        return out + (None, None)
+    return (None,) + out[1:] + wt.embed_grads_plain(x, out[0], h0.dtype,
+                                                    wemb.shape[1])
+
+
+def chunk_rec_kernel(args, cots, windows=0):
+    from vqvae_tpu_torch.kernels import wavenet_train_cuda as wt
+    dils, mode, x, wemb, bemb, cond, gc, wff, vc, wr, br, ws, tail = args
+    if windows > 1:
+        return wt.bwd_win_kernel(dils, windows, x, cond, gc, wff, vc, wr, br,
+                                 ws, *cots)
+    return wt.bwd_rec_kernel(*args[:-1], *cots)
+
+
+def vq_check(N, device, errs, seed=0):
+    """The VQ kernel against its plain version on seeded z [N, 64] and a
+    codebook [512, 64]: ids equal on every row whose two best float64
+    scores differ by more than VQ_MARGIN of the largest; the worst score
+    gap between the two picks is recorded.  Returns (inputs, rows left
+    out, mismatches)."""
+    import torch
+    from vqvae_tpu_torch.kernels import vq_cuda
+    g = torch.Generator().manual_seed(seed)
+    z = torch.randn(N, 64, generator=g).to(device)
+    cb = torch.randn(512, 64, generator=g).to(device)
+    got = vq_cuda.vq_argmin_kernel(z, cb).long()
+    want = vq_cuda.vq_argmin_plain(z, cb).long()
+    s = 2 * (z.double() @ cb.double().T) - (cb.double() ** 2).sum(-1)
+    top = s.topk(2, -1).values
+    far = (top[:, 0] - top[:, 1]) > VQ_MARGIN * float(s.abs().max())
+    bad = got != want
+    check(not bool((bad & far).any()), f"vq N={N}: {int((bad & far).sum())}"
+          " ids differ from the plain search away from a near-tie")
+    gap = float((s.gather(1, got[:, None]) - s.gather(1, want[:, None]))
+                .abs().max())
+    errs["vq_argmin"] = max(errs.get("vq_argmin", 0.0), gap)
+    return (z, cb), int((~far).sum()), int(bad.sum())
+
+
 def compare(name, got, want, tol, errs):
     """Each tensor pair within tol * max|want|; records the worst
     absolute error under ``name``; returns the worst relative one."""
@@ -561,8 +657,8 @@ def compare(name, got, want, tol, errs):
 
 
 def train_kernel_phase(cfg_all, device):
-    """The four training kernels against their plain versions at stretch
-    width, B=2, T=7680: outputs and every gradient."""
+    """The training kernels against their plain versions at stretch
+    width, B=2, T=7680: outputs and every gradient; the VQ search."""
     import torch
     from vqvae_tpu_torch.kernels import head_ce_cuda as hc
     from vqvae_tpu_torch.kernels import wavenet_train_cuda as wt
@@ -580,10 +676,27 @@ def train_kernel_phase(cfg_all, device):
             bk = wt.bwd_kernel(*args[:-1], fp[2], *cots)
             bp = chunk_plain(args, cots, fp[2])
             rb = compare("chunk_bwd", bk, bp, tol, errs)
+            del fk, fp, bk, bp
+            fk = wt.fwd_kernel(*args, save_gates=False)
+            check(fk[2] is None, "the recompute forward wrote gates")
+            rn = compare("chunk_fwd", fk[:2], chunk_plain(args)[:2], tol,
+                         errs)
+            rr = compare("chunk_bwd_rec", chunk_rec_kernel(args, cots),
+                         chunk_rec_plain(args, cots), tol, errs)
+            rw = []
+            if mode != wt.EMBED:
+                for nT in (2, 4):
+                    rw.append(compare("chunk_bwd_win",
+                                      chunk_rec_kernel(args, cots, nT),
+                                      chunk_rec_plain(args, cots, nT), tol,
+                                      errs))
             torch.cuda.synchronize()
             say("train-kernels", t0, f"chunk {mname} {str(cdt)[6:]} B={B} "
-                f"T={T}: forward (h, skips, gates) max rel err {rf:.3g}, "
-                f"backward (every gradient) {rb:.3g} <= {tol}")
+                f"T={T}: forward (h, skips, gates) max rel err {rf:.3g} "
+                f"(without gates {rn:.3g}), save-gates backward (every "
+                f"gradient) {rb:.3g}, recompute backward {rr:.3g}"
+                + (f", windowed backward (2, 4 windows) {rw[0]:.3g}, "
+                   f"{rw[1]:.3g}" if rw else "") + f" <= {tol}")
         t0 = time.monotonic()
         args = head_inputs(cdt, device, B * T, cfg)
         g = torch.tensor(1.0, device=device)
@@ -593,6 +706,13 @@ def train_kernel_phase(cfg_all, device):
                      hc.bwd_plain(*args, g), tol, errs)
         say("train-kernels", t0, f"head+CE {str(cdt)[6:]} N={B * T}: loss "
             f"rel err {rf:.3g}, gradients {rb:.3g} <= {tol}")
+    for N in (1920, 7680):
+        t0 = time.monotonic()
+        _, left_out, bad = vq_check(N, device, errs, seed=N)
+        say("train-kernels", t0, f"vq N={N} K=512 d=64: ids equal to the "
+            f"plain search on every row above the margin; {left_out} of "
+            f"{N} rows within {VQ_MARGIN} of max|score| left out, {bad} "
+            f"ids differ in all; worst score gap {errs['vq_argmin']:.3g}")
     return errs
 
 
@@ -628,8 +748,9 @@ def train_cli_phase():
                 if ln.startswith("kernel launches: ")]
         check(len(line) == 1, "the trainer printed no launch counts")
         counts = json.loads(line[0].split(": ", 1)[1])
-        check(all(v > 0 for v in counts.values()),
-              f"a training kernel was not launched: {counts}")
+        path = ("chunk_fwd", "chunk_bwd", "head_ce_fwd", "head_ce_bwd")
+        check(all(counts[k] > 0 for k in path),
+              f"a kernel of the stretch path was not launched: {counts}")
         say("train-cli", t0, f"{TRAIN_PRESET}, 3 steps: exit 0; step 1 "
             f"loss1 {recs[0]['loss1']:.4f} loss2 {recs[0]['loss2']:.4f} "
             f"loss3 {recs[0]['loss3']:.4f}; weights.npz loads; launches "
@@ -698,6 +819,7 @@ def train_time_phase(cfg_all, device, errs):
     loader = BatchLoader(SineDataset(cfg.data), B, seed=0)
     batches = [tuple(torch.from_numpy(a).to(device) for a in next(loader))
                for _ in range(2)]
+    loader.close()
 
     def stepper(c):
         state = create_train_state(c, device)
@@ -830,6 +952,240 @@ def train_time_phase(cfg_all, device, errs):
     return out
 
 
+def write_vctk_tree(root, speakers=4, utts=5, sr=48000):
+    """A VCTK-layout tree ``<root>/wav48/p<N>/p<N>_<k>.wav``: int16
+    harmonic tones of 1.0-1.4 s between 0.3 s of near-silence, at 48 kHz
+    (the loader resamples to 16 kHz and trims the silence)."""
+    from scipy.io import wavfile
+    rng = np.random.default_rng(0)
+    for s_ in range(speakers):
+        spk = f"p{225 + s_}"
+        d = os.path.join(root, "wav48", spk)
+        os.makedirs(d, exist_ok=True)
+        for u in range(utts):
+            n = int(sr * (1.0 + 0.1 * u))
+            t = np.arange(n) / sr
+            f = 110.0 * (s_ + 1) * (1 + 0.05 * u)
+            tone = 0.5 * np.sin(2 * np.pi * f * t) + 0.2 * np.sin(
+                4 * np.pi * f * t)
+            pad = np.zeros(int(0.3 * sr))
+            x = np.concatenate([pad, tone, pad])
+            x += 1e-4 * rng.standard_normal(x.shape)
+            wavfile.write(os.path.join(d, f"{spk}_{u:03d}.wav"), sr,
+                          (x * 32767).astype(np.int16))
+
+
+def train_vctk(tree, out, steps, *extra):
+    """One ``vqvae-torch-train --preset vctk-multi --dataset vctk`` run
+    as a user runs it: (launch counts, log records)."""
+    args = [sys.executable, "-m", "vqvae_tpu_torch.cli.train", "--preset",
+            "vctk-multi", "--dataset", "vctk", "--root", tree, "--impl",
+            "pallas", "--eval-every", "2", "--steps", str(steps), "--out",
+            out, "--set", "train.checkpoint_every=2", *extra]
+    r = subprocess.run(args, cwd=ROOT, capture_output=True, text=True,
+                       timeout=600)
+    if r.returncode != 0:
+        print(r.stdout[-4000:], r.stderr[-4000:], flush=True)
+        fail(f"the vctk-multi trainer exited with {r.returncode}: "
+             f"{' '.join(args[2:])}")
+    recs = [json.loads(ln) for ln in open(os.path.join(out, "log.jsonl"))]
+    check(bool(recs) and all(np.isfinite(rec[k]) for rec in recs
+                             for k in ("loss", "loss1", "loss2", "loss3")),
+          f"non-finite or missing losses in {out}/log.jsonl: {recs}")
+    check(any("val_loss1" in rec and np.isfinite(rec["val_loss1"])
+              for rec in recs), f"no val_ keys in {out}/log.jsonl: {recs}")
+    line = [ln for ln in r.stdout.splitlines()
+            if ln.startswith("kernel launches: ")]
+    check(len(line) == 1, "the trainer printed no launch counts")
+    return json.loads(line[0].split(": ", 1)[1]), recs
+
+
+def train_cli_vctk_phase():
+    """vctk-multi through the CLI on a synthetic VCTK tree: a straight
+    4-step run, 2 steps plus a resume to 4 (equal weights), and 2 steps
+    of the windowed backward.  Returns (counts of the straight run,
+    counts of the windowed run)."""
+    t0 = time.monotonic()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_vctk_",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        tree = os.path.join(work, "VCTK")
+        write_vctk_tree(tree)
+        a, b, c = (os.path.join(work, x) for x in ("straight", "resumed",
+                                                    "windowed"))
+        counts, recs = train_vctk(tree, a, 4)
+        path = ("chunk_fwd", "chunk_bwd_rec", "vq_argmin")
+        check(all(counts[k] > 0 for k in path) and counts["chunk_bwd"] == 0
+              and counts["chunk_bwd_win"] == 0,
+              f"vctk-multi did not run the recompute path: {counts}")
+        say("train-cli-vctk", t0, f"vctk-multi --dataset vctk --impl pallas,"
+            f" 4 steps: exit 0; step 1 loss1 {recs[0]['loss1']:.4f} loss2 "
+            f"{recs[0]['loss2']:.4f}; val_loss1 at steps "
+            f"{[r['iteration'] for r in recs if 'val_loss1' in r]}; "
+            f"launches {counts}")
+        t0 = time.monotonic()
+        train_vctk(tree, b, 2)
+        rcounts, rrecs = train_vctk(tree, b, 4, "--resume")
+        check([r["iteration"] for r in rrecs][-1] == 4 and
+              rcounts["chunk_bwd_rec"] > 0, f"the resume did not reach step "
+              f"4 through the recompute path: {rcounts}")
+        worst, bad = 0.0, []
+        with np.load(os.path.join(a, "weights.npz")) as wa, \
+                np.load(os.path.join(b, "weights.npz")) as wb:
+            check(set(wa.files) == set(wb.files), "weights.npz keys differ")
+            for k in wa.files:
+                x, y = wa[k].astype(np.float64), wb[k].astype(np.float64)
+                worst = max(worst, float(np.abs(x - y).max()))
+                if not np.allclose(y, x, rtol=1e-6, atol=1e-7):
+                    bad.append(k)
+        check(not bad, f"resumed weights differ from the straight run's "
+              f"beyond rtol 1e-6: {bad} (max |d| {worst})")
+        say("train-cli-vctk", t0, f"2 steps + --resume to 4 == 4 straight "
+            f"steps (weights.npz max |d| {worst:.3g}, rtol 1e-6); resumed "
+            f"run's launches {rcounts}")
+        t0 = time.monotonic()
+        wcounts, wrecs = train_vctk(tree, c, 2, "--bwd-windows", "4")
+        check(wcounts["chunk_bwd_win"] > 0 and wcounts["vq_argmin"] > 0,
+              f"--bwd-windows 4 did not run the windowed backward: {wcounts}")
+        say("train-cli-vctk", t0, f"--bwd-windows 4, 2 steps: exit 0; step 1"
+            f" loss1 {wrecs[0]['loss1']:.4f}; launches {wcounts}")
+        return counts, wcounts
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def train_time_vctk_phase(device, errs):
+    """vctk-multi at B=16, T=7680, bf16, with the VQ kernel: step time and
+    peak memory for the recompute, windowed, save-gates and plain
+    decoders; the recompute step's profile; the recompute and windowed
+    backwards and the VQ search against their plain versions at these
+    shapes, timed beside them and their bounds."""
+    import dataclasses
+    import torch
+    from vqvae_tpu_torch.audio.datasets import SineDataset
+    from vqvae_tpu_torch.audio.loader import BatchLoader
+    from vqvae_tpu_torch.configs import get_config
+    from vqvae_tpu_torch.kernels import vq_cuda
+    from vqvae_tpu_torch.kernels import wavenet_train_cuda as wt
+    from vqvae_tpu_torch.train.state import create_train_state
+    from vqvae_tpu_torch.train.step import train_step
+    cfg = get_config(PRESET)
+    B, T = cfg.train.batch_size, cfg.data.length
+    loader = BatchLoader(SineDataset(cfg.data), B, seed=0)
+    batches = [tuple(torch.from_numpy(a).to(device) for a in next(loader))
+               for _ in range(2)]
+    loader.close()
+
+    def stepper(kw):
+        c = cfg.replace(model=dataclasses.replace(cfg.model, **kw))
+        state = create_train_state(c, device)
+        it = [0]
+
+        def step():
+            wav, spk = batches[it[0] % 2]
+            it[0] += 1
+            return train_step(state, wav, spk, c, impl="pallas")
+        return step
+
+    settings = (("recompute", dict(decoder_kernel="pallas")),
+                ("windowed-4", dict(decoder_kernel="pallas",
+                                    bwd_time_windows=4)),
+                ("save-gates", dict(decoder_kernel="pallas_sg")),
+                ("plain", dict(decoder_kernel="xla")))
+    for name, kw in settings:
+        t0 = time.monotonic()
+        step = stepper(kw)
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        ts = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            m = step()
+            torch.cuda.synchronize()
+            ts.append(1e3 * (time.perf_counter() - t1))
+        ms = sorted(ts)[1]
+        peak = torch.cuda.max_memory_allocated(device)
+        check(np.isfinite(float(m["loss"])), f"{name}: non-finite loss")
+        each = ", ".join(f"{t:.1f}" for t in ts)
+        say("train-time-vctk", t0, f"{PRESET} B={B} T={T} bf16, "
+            f"decoder {name}: {ms:.1f} ms/step (median of {each}; "
+            f"{B * T / ms * 1e3 / 16000:.2f} s of audio per s), peak memory "
+            f"{peak / 2**30:.2f} GiB")
+        del step
+        torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    step = stepper(settings[0][1])
+    step()
+    wall, busy, rows = profile_step(step, 2)
+    say("train-time-vctk", t0, f"recompute step: device busy {busy:.1f} of "
+        f"{wall:.1f} ms over 2 steps ({100 * busy / wall:.1f}%)")
+    for ms_, key, count in rows[:14]:
+        print(f"    {100 * ms_ / busy:5.1f}%  {ms_ / 2:9.3f} ms/step  "
+              f"x{count // 2:<4d} {key[:90]}", flush=True)
+    del step
+    torch.cuda.empty_cache()
+
+    t0 = time.monotonic()
+    mc = cfg.model
+    R, S, d, mu = mc.residual_channels, mc.skip_channels, mc.d, mc.mu
+    nl = wt.MAX_CHUNK_LAYERS
+    n_chunks = mc.n_layers_total // nl
+    Tc, A, W = wt.window_geometry(T, 4, mc.dilations[:nl])
+    per = {"chunk_bwd_rec": {}, "chunk_bwd_win": {}}
+    for mode in (wt.SEED, wt.ACC):
+        args, cots = chunk_inputs(mode, torch.bfloat16, device, B, T, mc)
+        for name, nT, expand in (("chunk_bwd_rec", 0, 1.0),
+                                 ("chunk_bwd_win", 4, W / Tc)):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            got = chunk_rec_kernel(args, cots, nT)
+            torch.cuda.synchronize()
+            scratch = torch.cuda.max_memory_allocated(device) - before
+            r = compare(name, got, chunk_rec_plain(args, cots, nT), 3e-2,
+                        errs)
+            del got
+            ms_ = cuda_ms(lambda: chunk_rec_kernel(args, cots, nT))
+            pms = cuda_ms(lambda: chunk_rec_plain(args, cots, nT), reps=1)
+            per[name][mode] = (ms_, pms, rec_work(mode, B, T, R, S, d, nl,
+                                                  mu, expand))
+            mname = "seed" if mode == wt.SEED else "acc"
+            say("train-time-vctk", t0, f"{name} {mname} bfloat16 B={B} T={T}"
+                + (f" ({nT} windows of {Tc}, halo {A})" if nT else "")
+                + f": max rel err {r:.3g} <= 0.03; kernel {ms_:.2f} ms, "
+                f"plain {pms:.2f} ms; one call allocates "
+                f"{scratch / 2**20:.0f} MiB (scratch and gradients)")
+        del args, cots
+        torch.cuda.empty_cache()
+    out = {}
+    weights = {wt.SEED: 1, wt.ACC: n_chunks - 1}   # launches per step
+    k = sum(weights.values())
+    for name, by_mode in per.items():
+        ms_ = sum(w * by_mode[m][0] for m, w in weights.items()) / k
+        plain = sum(w * by_mode[m][1] for m, w in weights.items()) / k
+        fl = sum(w * by_mode[m][2][0] for m, w in weights.items()) / k
+        by = sum(w * by_mode[m][2][1] for m, w in weights.items()) / k
+        bms, bby = bound(fl, by)
+        out[name] = dict(ms=ms_, plain_ms=plain, bound_ms=bms, bound_by=bby)
+        say("train-time-vctk", t0, f"{name} per launch (seed x1, acc x"
+            f"{n_chunks - 1} averaged): kernel {ms_:.2f} ms, plain "
+            f"{plain:.2f} ms, bound {bms:.3f} ms ({bby})")
+    N = B * T // mc.hop
+    (z, cb), left_out, bad = vq_check(N, device, errs, seed=1)
+    ms_ = cuda_ms(lambda: vq_cuda.vq_argmin_kernel(z, cb), reps=50)
+    pms = cuda_ms(lambda: vq_cuda.vq_argmin_plain(z, cb), reps=50)
+    bms, bby = bound(*vq_work(N, cb.shape[0], cb.shape[1]), peak=PEAK_F32)
+    out["vq_argmin"] = dict(ms=ms_, plain_ms=pms, bound_ms=bms, bound_by=bby)
+    say("train-time-vctk", t0, f"vq N={N} (B={B} x T/{mc.hop}) K=512 d=64: "
+        f"{left_out} rows within the margin left out, {bad} ids differ; "
+        f"kernel {ms_ * 1e3:.1f} us, plain (addmm + argmax) "
+        f"{pms * 1e3:.1f} us, bound {bms * 1e3:.2f} us ({bby}, float32 "
+        f"at 67 TFLOP/s)")
+    return out
+
+
 def main():
     t0 = time.monotonic()
     smi = nvidia_smi()
@@ -850,7 +1206,8 @@ def main():
     t0 = time.monotonic()
     sources = {"vqvae_decode": "decode.cu",
                "vqvae_wavenet_train": "wavenet_train.cu",
-               "vqvae_head_ce": "head_ce.cu"}
+               "vqvae_head_ce": "head_ce.cu",
+               "vqvae_vq": "vq.cu"}
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         # one nvcc per source, all started together
         for f in [pool.submit(build.build, k, [v])
@@ -895,15 +1252,26 @@ def main():
     errs = train_kernel_phase(train_cfg, device)
     counts = train_cli_phase()
     timing = train_time_phase(train_cfg, device, errs)
+    vctk_counts, win_counts = train_cli_vctk_phase()
+    timing.update(train_time_vctk_phase(device, errs))
+    # each kernel's launches come from the run of the path that uses it
+    counts.update({k: vctk_counts[k] for k in ("chunk_bwd_rec",
+                                                 "vq_argmin")})
+    counts["chunk_bwd_win"] = win_counts["chunk_bwd_win"]
     for name, src, replaces in (
             ("chunk_fwd", "wavenet_train.cu",
              "vqvae_tpu/kernels/wavenet_train_pallas.py:586"),
             ("chunk_bwd", "wavenet_train.cu",
              "vqvae_tpu/kernels/wavenet_train_pallas.py:727"),
+            ("chunk_bwd_rec", "wavenet_train.cu",
+             "vqvae_tpu/kernels/wavenet_train_pallas.py:727"),
+            ("chunk_bwd_win", "wavenet_train.cu",
+             "vqvae_tpu/kernels/wavenet_train_pallas.py:809"),
             ("head_ce_fwd", "head_ce.cu",
              "vqvae_tpu/kernels/head_ce_pallas.py:170"),
             ("head_ce_bwd", "head_ce.cu",
-             "vqvae_tpu/kernels/head_ce_pallas.py:201")):
+             "vqvae_tpu/kernels/head_ce_pallas.py:201"),
+            ("vq_argmin", "vq.cu", "vqvae_tpu/kernels/vq_pallas.py:58")):
         kernels.append({"name": name, "route": "cuda",
                         "source": f"vqvae_tpu_torch/csrc/{src}",
                         "replaces": replaces, "launches": counts[name],

@@ -1,4 +1,4 @@
-"""The CUDA decode kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: these skip on a machine without a GPU.  On the card
 (which has no JAX, so without this directory's conftest):
@@ -195,3 +195,65 @@ def test_chunk_kernel_rejects_bad_inputs(cuda):
     bad[6] = args[6][:, :1]                # gc of the wrong layer count
     with pytest.raises(ValueError, match="gc"):
         wt.fwd_kernel(*bad)
+
+
+# ---- the recompute and windowed backwards and the VQ search (csrc/vq.cu) --
+
+from vqvae_tpu_torch.kernels import vq_cuda                     # noqa: E402
+
+
+def _want_rec(args, cots):
+    dils, mode, x, wemb, bemb, cond, gc, wff, vc, wr, br, ws, _ = args
+    h0 = wt.embed_h(x, wemb, bemb) if mode == wt.EMBED else x
+    want = wt.bwd_rec_plain(dils, h0, cond, gc, wff, vc, wr, br, ws, *cots)
+    if mode == wt.EMBED:
+        return (None,) + want[1:] + wt.embed_grads_plain(
+            x, want[0], wemb.dtype, wemb.shape[1])
+    return want
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", [wt.SEED, wt.ACC, wt.EMBED])
+def test_recompute_backward_kernel_vs_plain(cuda, mode, cdt):
+    args, cots = _chunk_inputs(mode, cdt, cuda)
+    before = wt.launches_bwd_rec
+    got = wt.bwd_rec_kernel(*args[:-1], *cots)
+    assert wt.launches_bwd_rec == before + 1
+    for a, b in zip(got, _want_rec(args, cots)):
+        if b is not None:
+            assert _rel_err(a, b) <= TRAIN_TOL[cdt]
+    h, _, gall = wt.fwd_kernel(*args, save_gates=False)
+    assert gall is None and bool(torch.isfinite(h).all())
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode,windows", [(wt.SEED, 2), (wt.ACC, 4)])
+def test_windowed_backward_kernel_vs_plain(cuda, mode, windows, cdt):
+    args, cots = _chunk_inputs(mode, cdt, cuda, T=320)
+    dils, _, x, _, _, cond, gc, wff, vc, wr, br, ws, _ = args
+    w = (cond, gc, wff, vc, wr, br, ws)
+    before = wt.launches_bwd_win
+    got = wt.bwd_win_kernel(dils, windows, x, *w, *cots)
+    assert wt.launches_bwd_win == before + 1
+    want = wt.bwd_win_plain(dils, windows, x, *w, *cots)
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) <= TRAIN_TOL[cdt]
+    with pytest.raises(ValueError, match="bwd_windows"):
+        wt.bwd_win_kernel(dils, 3, x, *w, *cots)
+
+
+@pytest.mark.parametrize("N", [1920, 1000])
+def test_vq_kernel_vs_plain(cuda, N):
+    """Ids equal wherever the two best scores differ by more than 1e-4
+    of the largest score."""
+    g = torch.Generator().manual_seed(N)
+    z = torch.randn(N, 64, generator=g).to(cuda)
+    cb = torch.randn(512, 64, generator=g).to(cuda)
+    before = vq_cuda.launches
+    got = vq_cuda.vq_argmin(z, cb)
+    assert vq_cuda.launches == before + 1 and got.dtype == torch.int32
+    s = 2 * (z.double() @ cb.double().T) - (cb.double() ** 2).sum(-1)
+    top = s.topk(2, -1).values
+    far = (top[:, 0] - top[:, 1]) > 1e-4 * float(s.abs().max())
+    want = vq_cuda.vq_argmin_plain(z, cb)
+    assert bool((got == want)[far].all())

@@ -16,6 +16,10 @@ def test_port_imports_without_jax():
         "import vqvae_tpu_torch.train.loop, vqvae_tpu_torch.audio.loader\n"
         "import vqvae_tpu_torch.kernels.wavenet_train_cuda\n"
         "import vqvae_tpu_torch.kernels.head_ce_cuda\n"
+        "import vqvae_tpu_torch.kernels.vq_cuda\n"
+        "import vqvae_tpu_torch.audio.wav_io, vqvae_tpu_torch.audio.datasets\n"
+        "import vqvae_tpu_torch.train.evaluator\n"
+        "import vqvae_tpu_torch.train.checkpoint\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'vqvae_tpu'))\n"
         "print(bad)\n"

@@ -1,7 +1,7 @@
 """The training slice's host side against the JAX package: framing,
 the synthetic dataset and the batch stream are equal; and the
-``vqvae-torch-train`` CLI runs on the CPU and refuses what is not
-ported."""
+``vqvae-torch-train`` CLI runs on the CPU and refuses what it cannot
+run (no GPU, no corpus)."""
 
 import json
 import os
@@ -68,6 +68,7 @@ def test_batch_stream_same_as_jax_loader():
             np.testing.assert_array_equal(spk, js)
             assert spk.dtype == np.int32
     finally:
+        ours.close()
         theirs.close()
 
 
@@ -95,12 +96,15 @@ def test_train_cli_on_cpu_writes_log_config_and_weights(tmp_path):
     line = [ln for ln in r.stdout.splitlines()
             if ln.startswith("kernel launches: ")]
     assert json.loads(line[0].split(": ", 1)[1]) == {
-        "chunk_fwd": 0, "chunk_bwd": 0, "head_ce_fwd": 0, "head_ce_bwd": 0}
+        "chunk_fwd": 0, "chunk_bwd": 0, "chunk_bwd_rec": 0,
+        "chunk_bwd_win": 0, "head_ce_fwd": 0, "head_ce_bwd": 0,
+        "vq_argmin": 0}
 
 
 @pytest.mark.parametrize("args,needle", [
     (("--device", "cuda"), "CUDA"),
-    (("--device", "cpu", "--dataset", "vctk"), "not ported yet"),
+    (("--device", "cpu", "--dataset", "vctk", "--root", "no-such-corpus"),
+     "no such directory"),
 ])
 def test_train_cli_refuses_what_it_cannot_run(tmp_path, args, needle):
     base = ["--preset", "tiny", "--steps", "1", "--out", str(tmp_path)]

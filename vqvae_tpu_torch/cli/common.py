@@ -101,14 +101,36 @@ def load_params(model_path: str, cfg: Config, device="cpu"):
     return params
 
 
-def make_dataset(cfg: Config, kind: str):
-    """(train dataset, valid dataset).  Only the synthetic ``sine`` set
-    is ported: the repository holds no VCTK corpus."""
-    if kind != "sine":
-        raise SystemExit(f"--dataset {kind} is not ported yet (needs the "
-                         "corpus and ROADMAP A6); use --dataset sine")
-    from vqvae_tpu_torch.audio.datasets import SineDataset
-    return SineDataset(cfg.data), SineDataset(cfg.data, f0=137.0)
+def make_dataset(cfg: Config, kind: str, root: str | None = None):
+    """(train dataset, valid dataset or None): the synthetic ``sine``
+    set, or the VCTK tree under ``root`` (default
+    ``cfg.data.dataset_root``) split by ``cfg.data.valid_fraction``."""
+    if kind == "sine":
+        from vqvae_tpu_torch.audio.datasets import SineDataset
+        return SineDataset(cfg.data), SineDataset(cfg.data, f0=137.0)
+    if kind != "vctk":
+        raise SystemExit(f"unknown --dataset {kind!r} (vctk or sine)")
+    from vqvae_tpu_torch.audio.datasets import (
+        WavDataset,
+        scan_vctk,
+        train_valid_split,
+    )
+    root = root or cfg.data.dataset_root
+    if not os.path.isdir(root):
+        raise SystemExit(f"--root {root}: no such directory (a VCTK-style "
+                         "tree: <root>/wav48/<speaker>/<utt>.wav)")
+    paths, ids, spk_dict = scan_vctk(root, cfg.data.speaker)
+    if not paths:
+        raise SystemExit(f"--root {root}: no .wav files found")
+    (tp, ti), (vp, vi) = train_valid_split(
+        paths, ids, cfg.data.valid_fraction, cfg.data.seed)
+    if not tp:
+        raise SystemExit(f"--root {root}: every file went to the "
+                         "validation split")
+    print(f"dataset: {len(paths)} files ({len(tp)} train / {len(vp)} "
+          f"valid), {len(spk_dict)} speakers")
+    valid = WavDataset(vp, vi, cfg.data) if vp else None
+    return WavDataset(tp, ti, cfg.data), valid
 
 
 def resolve_device(device: str):

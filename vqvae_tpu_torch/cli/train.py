@@ -1,16 +1,20 @@
 """Training CLI (port of ``vqvae_tpu/cli/train.py``; console script
 ``vqvae-torch-train``).
 
-    vqvae-torch-train --preset stretch --dataset sine --steps 3 --out run
+    vqvae-torch-train --preset vctk-multi --dataset vctk --root VCTK \\
+        [--impl pallas] [--bwd-windows N] [--eval-every K] [-r] --out run
 
 trains on one device and writes ``<out>/config.json``,
-``<out>/log.jsonl`` and ``<out>/weights.npz`` (which
-``vqvae-torch-serve -m`` loads).  ``--device cuda`` (the default) fails
-without a GPU; ``--device cpu`` runs the kernels' plain versions.  At
-exit it prints the training kernels' launch counts as one JSON line.
-Kernel switches go through ``--set`` (``--set model.decoder_kernel=xla``
-runs the plain layer loop).  Not ported yet: ``--dataset vctk`` and
-``--resume`` (ROADMAP A6), the mesh flags (A8), ``--impl pallas`` (B10).
+``<out>/log.jsonl`` (with ``val_*`` rows at ``eval_every``),
+``<out>/checkpoints/`` (the whole train state, for ``--resume``) and
+``<out>/weights.npz`` (which ``vqvae-torch-serve -m`` loads).
+``--device cuda`` (the default) fails without a GPU; ``--device cpu``
+runs the kernels' plain versions.  At exit it prints the training
+kernels' launch counts as one JSON line.  ``--decoder-kernel`` picks
+the decoder stack (``pallas`` recompute, ``pallas_sg`` saved gates,
+``xla`` the plain layer loop), ``--impl`` the VQ search; any other
+field goes through ``--set``.  Not ported yet: the mesh flags (ROADMAP
+A8), ``--loader grain``, ``--tensorboard`` and ``--profile``.
 """
 
 from __future__ import annotations
@@ -29,11 +33,15 @@ from vqvae_tpu_torch.cli.common import (
 
 def launch_counts() -> dict:
     """Kernel launches of the training kernels in this process."""
-    from vqvae_tpu_torch.kernels import head_ce_cuda, wavenet_train_cuda
-    return {"chunk_fwd": wavenet_train_cuda.launches_fwd,
-            "chunk_bwd": wavenet_train_cuda.launches_bwd,
+    from vqvae_tpu_torch.kernels import head_ce_cuda, vq_cuda
+    from vqvae_tpu_torch.kernels import wavenet_train_cuda as wt
+    return {"chunk_fwd": wt.launches_fwd,
+            "chunk_bwd": wt.launches_bwd,
+            "chunk_bwd_rec": wt.launches_bwd_rec,
+            "chunk_bwd_win": wt.launches_bwd_win,
             "head_ce_fwd": head_ce_cuda.launches_fwd,
-            "head_ce_bwd": head_ce_cuda.launches_bwd}
+            "head_ce_bwd": head_ce_cuda.launches_bwd,
+            "vq_argmin": vq_cuda.launches}
 
 
 def main(argv=None) -> None:
@@ -41,9 +49,27 @@ def main(argv=None) -> None:
         description="Train a VQ-VAE (PyTorch / CUDA port)")
     add_config_args(p)
     p.add_argument("--dataset", default="vctk", choices=["vctk", "sine"])
+    p.add_argument("--root", default=None, help="VCTK root directory")
+    p.add_argument("-r", "--resume", action="store_true",
+                   help="resume from the newest checkpoint in --out")
     p.add_argument("--steps", type=int, default=None)
     p.add_argument("--out", default=None, help="output directory")
     p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--impl", default="lax", choices=["lax", "pallas"],
+                   help="VQ search: float64 plain search (lax) or the "
+                        "float32 VQ kernel (pallas)")
+    p.add_argument("--decoder-kernel", default=None,
+                   choices=["xla", "pallas", "pallas_sg"],
+                   help="decoder stack: plain layer loop (xla), fused "
+                        "chunk kernels with the recompute backward "
+                        "(pallas) or with saved gates (pallas_sg)")
+    p.add_argument("--bwd-windows", type=int, default=None,
+                   help="pallas decoder kernel: run the recompute "
+                        "backward over N time windows")
+    p.add_argument("--loader", default=None, choices=["threads"],
+                   help="host input pipeline (worker threads)")
+    p.add_argument("--eval-every", type=int, default=None,
+                   help="validation interval in steps (0: off)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a GPU) or cpu")
     args = p.parse_args(argv)
@@ -51,14 +77,23 @@ def main(argv=None) -> None:
     cfg = resolve_config(args)
     tr = {k: v for k, v in (("num_steps", args.steps),
                             ("batch_size", args.batch_size),
-                            ("out_dir", args.out)) if v is not None}
+                            ("out_dir", args.out),
+                            ("loader", args.loader),
+                            ("eval_every", args.eval_every))
+          if v is not None}
     if tr:
         cfg = cfg.replace(train=dataclasses.replace(cfg.train, **tr))
-    dataset, _ = make_dataset(cfg, args.dataset)
+    mo = {k: v for k, v in (("decoder_kernel", args.decoder_kernel),
+                            ("bwd_time_windows", args.bwd_windows))
+          if v is not None}
+    if mo:
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, **mo))
+    dataset, valid = make_dataset(cfg, args.dataset, args.root)
     device = resolve_device(args.device)
 
     from vqvae_tpu_torch.train.loop import train
-    train(cfg, dataset, out_dir=cfg.train.out_dir, device=device)
+    train(cfg, dataset, out_dir=cfg.train.out_dir, device=device,
+          resume=args.resume, impl=args.impl, valid_dataset=valid)
     print("kernel launches: " + json.dumps(launch_counts()), flush=True)
 
 

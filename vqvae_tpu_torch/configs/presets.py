@@ -41,12 +41,13 @@ class DataConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Model shape (reference: ``opt.py`` globals consumed by ``net.py``).
-    Kernel switches: ``decoder_kernel`` ``xla`` (plain layer loop) or
-    ``pallas_sg`` (the CUDA chunk kernels); ``head_kernel`` ``xla`` or
-    ``pallas`` (the CUDA head+CE kernels); ``embed_in_kernel``.  The
-    others (``decoder_kernel="pallas"``, ``remat``, ``bwd_time_windows``,
-    ``encoder_kernel``) are carried so configs round-trip, and raise
-    where a path would need them."""
+    Kernel switches: ``decoder_kernel`` ``xla`` (plain layer loop),
+    ``pallas`` (the CUDA chunk kernels with the recompute backward,
+    time-windowed with ``bwd_time_windows > 1``) or ``pallas_sg`` (the
+    CUDA chunk kernels with saved gates); ``head_kernel`` ``xla`` or
+    ``pallas`` (the CUDA head+CE kernels); ``embed_in_kernel``;
+    ``remat``.  ``encoder_kernel`` is carried so configs round-trip and
+    raises for anything but ``xla`` (ROADMAP B11)."""
 
     mu: int = 256
     mulaw_mode: str = "round"
@@ -107,9 +108,9 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training engine settings.  The port's one-device trainer reads
-    the optimizer, batch, step, logging, export and seed fields; the
-    mesh, loader, eval and profiling fields are carried so a run's
-    config.json loads whole."""
+    the optimizer, batch, step, logging, eval, checkpoint, loader
+    (``threads`` only) and seed fields; the mesh, TensorBoard and
+    profiling fields are carried so a run's config.json loads whole."""
 
     batch_size: int = 16
     lr: float = 2e-4

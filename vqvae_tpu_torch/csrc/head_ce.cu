@@ -254,9 +254,9 @@ int bwd(int N, int S, int mu, const void* skips, const int* tgt,
           (const T*)w2T, g, (T*)x1g, (T*)dlg, (T*)dx1g, (T*)dskips, pdb1,
           pdb2);
   VQT_TRY(last_error());
-  KLAUNCH(seg_reduce, 1, NT, 0, st, nblk, S, pdb1, db1, S);
+  KLAUNCH(seg_reduce, 1, NT, 0, st, nblk, S, pdb1, db1, S, 0);
   VQT_TRY(last_error());
-  KLAUNCH(seg_reduce, 1, NT, 0, st, nblk, mu, pdb2, db2, mu);
+  KLAUNCH(seg_reduce, 1, NT, 0, st, nblk, mu, pdb2, db2, mu, 0);
   VQT_TRY(last_error());
   // the slabs of the products reuse the scratch once the sums are taken
   VQT_TRY((atb<T, T, T>(N, N, (const T*)x1g, S, S, 0, 0, (const T*)dlg, mu,

@@ -141,18 +141,41 @@ template <typename T> __host__ __device__ constexpr int words(int n) {
 // ---------------------------------------------------------------------------
 // C = A'^T B' summed over rows, split over blocks (split-K):
 //   part[s][m][n] = sum over the rows of split s of A'[row][m] * B'[row][n]
-// A'[row] = A[row - shift] where (row % seg) >= shift, else 0 (the causal
-// shift inside each batch row of length seg), optionally ReLU'd;
-// B'[row] = B[row] rounded to TC (a float32 B rounded to the compute
-// dtype, as the TPU kernel casts its cotangents before a product).
+// The rows come in segments of seg (one batch row each).  Row r of
+// segment g maps to row g*aseg + aoff + r of A and g*bseg + boff + r of
+// B: the identity when aseg = bseg = seg and aoff = boff = 0, and a time
+// window of longer rows (the windowed backward) otherwise.
+// A'[row] = A[mapped row - shift] where aoff + r >= shift, else 0 (the
+// causal shift inside each batch row), optionally ReLU'd;
+// B'[row] = B[mapped row] rounded to TC (a float32 B rounded to the
+// compute dtype, as the TPU kernel casts its cotangents before a product).
 // Tile 64x64 per block, 4x4 outputs per thread, 32 rows per stage.
 // ---------------------------------------------------------------------------
+
+struct RowMap {
+  int seg, aseg, aoff, bseg, boff;
+  bool identity() const {
+    return aseg == seg && aoff == 0 && bseg == seg && boff == 0;
+  }
+  // row of A and of B for row `row` of a mapped product (the kernels
+  // take their identity-map path, MAP = false, without these); the A
+  // row is -1 where the causal shift reads before the segment's start
+  __device__ __forceinline__ long long a_row(int row, int shift) const {
+    const int g = row / seg, r = row - g * seg;
+    if (aoff + r < shift) return -1;
+    return (long long)g * aseg + aoff + r - shift;
+  }
+  __device__ __forceinline__ long long b_row(int row) const {
+    const int g = row / seg;
+    return (long long)g * bseg + boff + row - g * seg;
+  }
+};
 
 constexpr int AT = 64;    // output tile edge
 constexpr int AK = 32;    // rows per shared-memory stage
 
-template <typename TA, typename TB, typename TC>
-__global__ void atb_part(int rows, int seg, const TA* __restrict__ A,
+template <typename TA, typename TB, typename TC, bool MAP>
+__global__ void atb_part(int rows, RowMap map, const TA* __restrict__ A,
                          int lda, int M, int shift, int relu,
                          const TB* __restrict__ B, int ldb, int N,
                          int chunk, float* __restrict__ part) {
@@ -172,11 +195,21 @@ __global__ void atb_part(int rows, int seg, const TA* __restrict__ A,
       const int k = e / AT, m = e % AT, row = rb + k;
       float a = 0.f, b = 0.f;
       if (row < r_end) {
-        if (m0 + m < M && (shift == 0 || (row % seg) >= shift)) {
-          a = tof(A[(size_t)(row - shift) * lda + m0 + m]);
-          if (relu) a = fmaxf(a, 0.f);
+        if constexpr (MAP) {
+          const long long ar = map.a_row(row, shift);
+          if (m0 + m < M && ar >= 0) {
+            a = tof(A[(size_t)ar * lda + m0 + m]);
+            if (relu) a = fmaxf(a, 0.f);
+          }
+          if (n0 + m < N)
+            b = rnd<TC>(tof(B[(size_t)map.b_row(row) * ldb + n0 + m]));
+        } else {
+          if (m0 + m < M && (shift == 0 || (row % map.seg) >= shift)) {
+            a = tof(A[(size_t)(row - shift) * lda + m0 + m]);
+            if (relu) a = fmaxf(a, 0.f);
+          }
+          if (n0 + m < N) b = rnd<TC>(tof(B[(size_t)row * ldb + n0 + m]));
         }
-        if (n0 + m < N) b = rnd<TC>(tof(B[(size_t)row * ldb + n0 + m]));
       }
       As[e] = a;
       Bs[e] = b;
@@ -213,8 +246,8 @@ __global__ void atb_part(int rows, int seg, const TA* __restrict__ A,
 // the 64x64 tile with 16x16x16 bf16 fragments into float32 accumulators.
 // Every product of two bf16 values is exact; only the float32 sum order
 // differs from atb_part.
-template <typename TA, typename TB>
-__global__ void atb_part_tc(int rows, int seg, const TA* __restrict__ A,
+template <typename TA, typename TB, bool MAP>
+__global__ void atb_part_tc(int rows, RowMap map, const TA* __restrict__ A,
                             int lda, int M, int shift, int relu,
                             const TB* __restrict__ B, int ldb, int N,
                             int chunk, float* __restrict__ part) {
@@ -235,11 +268,20 @@ __global__ void atb_part_tc(int rows, int seg, const TA* __restrict__ A,
       const int k = e / AT, m = e % AT, row = rb + k;
       float a = 0.f, b = 0.f;
       if (row < r_end) {
-        if (m0 + m < M && (shift == 0 || (row % seg) >= shift)) {
-          a = tof(A[(size_t)(row - shift) * lda + m0 + m]);
-          if (relu) a = fmaxf(a, 0.f);
+        if constexpr (MAP) {
+          const long long ar = map.a_row(row, shift);
+          if (m0 + m < M && ar >= 0) {
+            a = tof(A[(size_t)ar * lda + m0 + m]);
+            if (relu) a = fmaxf(a, 0.f);
+          }
+          if (n0 + m < N) b = tof(B[(size_t)map.b_row(row) * ldb + n0 + m]);
+        } else {
+          if (m0 + m < M && (shift == 0 || (row % map.seg) >= shift)) {
+            a = tof(A[(size_t)(row - shift) * lda + m0 + m]);
+            if (relu) a = fmaxf(a, 0.f);
+          }
+          if (n0 + m < N) b = tof(B[(size_t)row * ldb + n0 + m]);
         }
-        if (n0 + m < N) b = tof(B[(size_t)row * ldb + n0 + m]);
       }
       As[e] = __float2bfloat16(a);
       Bs[e] = __float2bfloat16(b);
@@ -270,14 +312,15 @@ __global__ void atb_part_tc(int rows, int seg, const TA* __restrict__ A,
   }
 }
 
-// out[e] = sum over p of part[p][e], p = 0, 1, ... in order
+// out[e] (+)= sum over p of part[p][e], p = 0, 1, ... in order; with
+// accumulate the sum is added to out (a later time window's share)
 __global__ void reduce_parts(int nsplit, int MN, const float* __restrict__ part,
-                             float* __restrict__ out) {
+                             float* __restrict__ out, int accumulate) {
   const int e = blockIdx.x * NT + threadIdx.x;
   if (e >= MN) return;
   float s = 0.f;
   for (int p = 0; p < nsplit; ++p) s += part[(size_t)p * MN + e];
-  out[e] = s;
+  out[e] = accumulate ? out[e] + s : s;
 }
 
 // Column sums of a float32 [nseg * seglen, C] matrix (row stride ldx) by
@@ -296,15 +339,17 @@ __global__ void colsum_part(int seglen, int C, const float* __restrict__ X,
   }
 }
 
-// out[seg*ostride + c] = sum over p of part[(seg*nparts + p)*C + c]
+// out[seg*ostride + c] (+)= sum over p of part[(seg*nparts + p)*C + c]
 __global__ void seg_reduce(int nparts, int C, const float* __restrict__ part,
-                           float* __restrict__ out, int ostride) {
+                           float* __restrict__ out, int ostride,
+                           int accumulate) {
   const int seg = blockIdx.x;
   for (int c = threadIdx.x; c < C; c += NT) {
     float s = 0.f;
     for (int p = 0; p < nparts; ++p)
       s += part[((size_t)seg * nparts + p) * C + c];
-    out[(size_t)seg * ostride + c] = s;
+    float* o = out + (size_t)seg * ostride + c;
+    *o = accumulate ? *o + s : s;
   }
 }
 
@@ -321,13 +366,16 @@ inline cudaError_t smem_opt_in(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-// out[M, N] = A'^T B' over `rows` rows (see atb_part), through the
+// out[M, N] (+)= A'^T B' over `rows` rows (see atb_part), through the
 // scratch `part` of part_cap floats; returns 0 or a CUDA error, or -1 if
-// the scratch is too small.
+// the scratch is too small.  The row map defaults to the identity over
+// segments of seg rows.
 template <typename TA, typename TB, typename TC>
 inline int atb(int rows, int seg, const TA* A, int lda, int M, int shift,
                int relu, const TB* B, int ldb, int N, float* out, float* part,
-               long long part_cap, cudaStream_t st) {
+               long long part_cap, cudaStream_t st, int accumulate = 0,
+               RowMap map = RowMap{0, 0, 0, 0, 0}) {
+  if (map.seg == 0) map = RowMap{seg, seg, 0, seg, 0};
   const int tiles = cdiv(M, AT) * cdiv(N, AT);
   int nsplit = cdiv(4 * 132, tiles);             // ~4 blocks per SM
   nsplit = std::max(1, std::min(nsplit, cdiv(rows, 4 * AK)));
@@ -337,36 +385,38 @@ inline int atb(int rows, int seg, const TA* A, int lda, int M, int shift,
   const int chunk = cdiv(rows, nsplit);
   nsplit = cdiv(rows, chunk);
   dim3 grid(cdiv(M, AT), cdiv(N, AT), nsplit);
+  const bool ident = map.identity();
   if constexpr (std::is_same<TC, bf16>::value) {
     // As and Bs (bf16) fill the first AK*AT floats, Cs follows
     const size_t sm = (AK * AT + AT * AT) * sizeof(float);
-    auto kern = atb_part_tc<TA, TB>;
-    KLAUNCH(kern, grid, NT, sm, st, rows, seg, A, lda, M, shift, relu, B,
+    auto kern = ident ? atb_part_tc<TA, TB, false> : atb_part_tc<TA, TB, true>;
+    KLAUNCH(kern, grid, NT, sm, st, rows, map, A, lda, M, shift, relu, B,
             ldb, N, chunk, part);
   } else {
     const size_t sm = 2 * AK * AT * sizeof(float);
-    auto kern = atb_part<TA, TB, TC>;
-    KLAUNCH(kern, grid, NT, sm, st, rows, seg, A, lda, M, shift, relu, B,
+    auto kern = ident ? atb_part<TA, TB, TC, false> : atb_part<TA, TB, TC, true>;
+    KLAUNCH(kern, grid, NT, sm, st, rows, map, A, lda, M, shift, relu, B,
             ldb, N, chunk, part);
   }
   cudaError_t e = last_error();
   if (e != cudaSuccess) return (int)e;
   KLAUNCH(reduce_parts, cdiv((long long)M * N, NT), NT, 0, st, nsplit, M * N,
-          part, out);
+          part, out, accumulate);
   return (int)last_error();
 }
 
-// out[seg*ostride + c] = column sums of each of nseg row segments of X
+// out[seg*ostride + c] (+)= column sums of each of nseg row segments of X
 inline int colsum(int nseg, int seglen, int C, const float* X, int ldx,
                   float* out, int ostride, float* part, long long part_cap,
-                  cudaStream_t st) {
+                  cudaStream_t st, int accumulate = 0) {
   const int nparts = cdiv(seglen, CR);
   if ((long long)nseg * nparts * C > part_cap) return -1;
   KLAUNCH(colsum_part, dim3(nparts, nseg), NT, 0, st, seglen, C, X, ldx,
           part);
   cudaError_t e = last_error();
   if (e != cudaSuccess) return (int)e;
-  KLAUNCH(seg_reduce, nseg, NT, 0, st, nparts, C, part, out, ostride);
+  KLAUNCH(seg_reduce, nseg, NT, 0, st, nparts, C, part, out, ostride,
+          accumulate);
   return (int)last_error();
 }
 

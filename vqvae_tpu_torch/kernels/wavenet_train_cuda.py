@@ -1,13 +1,14 @@
 """Fused gated-residual training chunk: the CUDA kernels
 ``csrc/wavenet_train.cu`` and their plain PyTorch versions (port of
-``vqvae_tpu/kernels/wavenet_train_pallas.py``, save-gates variant).
+``vqvae_tpu/kernels/wavenet_train_pallas.py``: the forward and the
+save-gates, recompute and time-windowed backwards).
 
 A chunk runs up to ``MAX_CHUNK_LAYERS`` layers of the decoder stack.
 Per layer, at the TPU kernel's rounding points (cdt = compute dtype):
 
 * ``u = [h(t-dil) | h(t)] @ wff + cond @ vc + gc``      float32
 * ``ta = tanh(u_a)``, ``sb = sigmoid(u_b)``; ``z = cdt(ta·sb)``
-* the gate halves ``gall[:, l] = cdt([ta | sb])`` are saved
+* the gate halves ``gall[:, l] = cdt([ta | sb])``
 * ``h = (h + cdt(z @ wr)) + br``                        two cdt adds
 * ``skips += z @ ws``                                   float32
 
@@ -17,18 +18,33 @@ end.  The ``embed`` variant computes the chunk input from the ids:
 ``h0[t] = cdt(w1[ids[t]] + w0[ids[t-1]] + b)``, one float32 sum and one
 cast (``w0[·]`` is 0 at t=0).
 
-The backward (``_bwd_kernel`` with ``save_gates=True``) first replays
-the residual chain from the saved gates, with ``z = cdt(g_a·g_b)`` as a
-product of the two rounded halves (not the forward's ``cdt(ta·sb)``),
-then walks the layers in reverse; dh stays float32 and every weight
-gradient sums over all B·T rows in float32.  The embedding-table
-gradient is a gather/scatter of ``cdt(dh)`` by id.  Gradients leave in
-the input dtypes, as ``_chunk_grads`` casts them.
+Three backwards (``_bwd_kernel`` and ``_bwd_kernel_windowed``):
+
+* save-gates (``decoder_kernel="pallas_sg"``): the forward keeps the
+  gate halves; pass 1 replays the residual chain from them, with
+  ``z = cdt(g_a·g_b)`` as a product of the two rounded halves (not the
+  forward's ``cdt(ta·sb)``).
+* recompute (``"pallas"``): the forward keeps only its inputs; pass 1
+  recomputes every layer exactly as the forward does (so the layer
+  inputs equal the forward's bit for bit) and keeps the rounded gate
+  halves for pass 2.
+* time-windowed recompute (``bwd_windows > 1``, not for the embed
+  chunk): the recompute over right-to-left windows of ``Tc = T / nT``
+  steps, each with a halo of ``A = sum(dils)`` (rounded up to 8) steps
+  before it, h masked to an exact 0 before the sequence start, and a
+  carry of ``dph_a`` from the window to the right.
+
+Pass 2 then walks the layers in reverse from the rounded gate halves
+(``z = cdt(g_a·g_b)``); dh stays float32 and every weight gradient sums
+over all B·T rows in float32.  The embedding-table gradient is a
+gather/scatter of ``cdt(dh)`` by id.  Gradients leave in the input
+dtypes, as ``_chunk_grads`` casts them.
 
 ``Chunk`` is a ``torch.autograd.Function``: CPU tensors run the plain
-version, CUDA tensors launch the kernels or raise.
-``launches_fwd`` / ``launches_bwd`` count kernel calls (one per chunk
-forward or backward).
+versions, CUDA tensors launch the kernels or raise.  Each kernel call
+adds one to its count: ``launches_fwd`` (chunk forward),
+``launches_bwd`` (save-gates backward), ``launches_bwd_rec`` (recompute
+backward), ``launches_bwd_win`` (windowed backward).
 """
 
 from __future__ import annotations
@@ -37,14 +53,17 @@ import ctypes
 from typing import Sequence
 
 import torch
+import torch.utils.checkpoint
 
 from vqvae_tpu_torch.kernels.build import build
 
 MAX_CHUNK_LAYERS = 10
 SEED, ACC, EMBED = 0, 1, 2
 
-launches_fwd = 0   # chunk-forward kernel calls in this process
-launches_bwd = 0   # chunk-backward kernel calls in this process
+launches_fwd = 0       # chunk-forward kernel calls in this process
+launches_bwd = 0       # save-gates backward kernel calls
+launches_bwd_rec = 0   # recompute backward kernel calls
+launches_bwd_win = 0   # windowed backward kernel calls
 
 _CDTYPE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -60,6 +79,22 @@ def _shift_left(x: torch.Tensor, n: int) -> torch.Tensor:
     if n == 0:
         return x
     return torch.nn.functional.pad(x, (0, 0, 0, n))[:, n:]
+
+
+def window_geometry(T: int, n_windows: int, dils: Sequence[int]):
+    """(Tc, A, W) of the windowed backward: window length ``T / nT``,
+    halo ``sum(dils)`` rounded up to 8, extended window ``Tc + A``.
+    Raises ``ValueError`` where the JAX kernel asserts."""
+    if n_windows < 2 or T % n_windows:
+        raise ValueError(f"bwd_windows={n_windows} must be >= 2 and divide "
+                         f"the length T={T}")
+    Tc = T // n_windows
+    if Tc % 8 or Tc < max(dils):
+        raise ValueError(f"bwd_windows={n_windows}: the window length "
+                         f"{Tc} must be a multiple of 8 and >= the largest "
+                         f"dilation {max(dils)}")
+    A = -(-sum(dils) // 8) * 8
+    return Tc, A, Tc + A
 
 
 # ---------------------------------------------------------------------------
@@ -86,73 +121,151 @@ def _residual(h, z, wr_l, br_l):
     return (h + (z.float() @ wr_l.float()).to(h.dtype)) + br_l
 
 
-def fwd_plain(dils: Sequence[int], h, cond, gc, wff, vc, wr, br, ws, tail,
-              acc: bool):
-    """(h_out, skips, gall ``[B, nl, T, 2R]``) of one chunk, from the
-    chunk input h ``[B, T, R]``."""
+def _chain(dils, h, cond, gc, wff, vc, wr, br, ws=None, skips=None,
+           neg=None):
+    """The forward's layer chain from the chunk input h: (every layer's
+    input, gate halves ``[B, nl, T, 2R]``, h_out, float32 skips).  The
+    skip sum runs when ``skips`` is given; ``neg`` ``[1, T, 1]`` marks
+    rows whose h is an exact 0 (before the sequence start)."""
     cdt = h.dtype
-    B, T, R = h.shape
+    R = h.shape[-1]
     condf = cond.float()
-    skips = (tail.float() if acc else
-             tail.float().reshape(1, 1, -1).expand(B, T, -1))
-    gall = []
+    hall, gall = [], []
     for li, dil in enumerate(dils):
+        hall.append(h)
         u = _layer_u(h, condf, gc[:, li], wff[li], vc[li], dil)
         ta, sb = torch.tanh(u[..., :R]), torch.sigmoid(u[..., R:])
         z = (ta * sb).to(cdt)
         gall.append(torch.cat([ta, sb], -1).to(cdt))
         h = _residual(h, z, wr[li], br[li])
-        skips = skips + z.float() @ ws[li].float()
-    return h, skips.to(cdt), torch.stack(gall, 1)
+        if neg is not None:
+            h = h.masked_fill(neg, 0)
+        if skips is not None:
+            skips = skips + z.float() @ ws[li].float()
+    return hall, torch.stack(gall, 1), h, skips
 
 
-def bwd_plain(dils: Sequence[int], h0, cond, gc, wff, vc, wr, br, ws, gall,
-              dhout, dskips):
-    """Float32 (dh, dcond, dgc, dwff, dvc, dwr, dbr, dws) of one chunk
-    from its input h0 and the saved gates."""
-    cdt = h0.dtype
-    B, T, R = h0.shape
+def fwd_plain(dils: Sequence[int], h, cond, gc, wff, vc, wr, br, ws, tail,
+              acc: bool):
+    """(h_out, skips, gall ``[B, nl, T, 2R]``) of one chunk, from the
+    chunk input h ``[B, T, R]``."""
+    B, T, _ = h.shape
+    skips = (tail.float() if acc else
+             tail.float().reshape(1, 1, -1).expand(B, T, -1))
+    _, gall, h, skips = _chain(dils, h, cond, gc, wff, vc, wr, br, ws, skips)
+    return h, skips.to(h.dtype), gall
+
+
+def _sweep_plain(dils, hall, cond, wff, vc, wr, ws, gall, dhout, dskips,
+                 hoff=0, spill=None):
+    """Pass 2, the reverse sweep: float32 (dh, dcond, dgc, dwff, dvc,
+    dwr, dbr, dws) over the Tn rows of dhout.  ``hall[li]`` holds layer
+    li's input with those rows at offset ``hoff`` (and the rows before
+    them that the causal shift reads); ``cond`` and ``gall`` hold just
+    the rows.  With ``spill`` (``[nl, B, Dmax, R]``, updated in place)
+    the shift takes the last rows' ``dph_a`` from the window to the
+    right and leaves this window's first rows for the one to the left."""
+    cdt = hall[0].dtype
+    B, Tn, R = dhout.shape
     nl = len(dils)
-    hall, h = [], h0
-    for li in range(nl):          # pass 1: the residual chain only
-        hall.append(h)
-        g = gall[:, li]
-        z = (g[..., :R].float() * g[..., R:].float()).to(cdt)
-        h = _residual(h, z, wr[li], br[li])
     f = torch.float32
+    dev = dhout.device
     dh = dhout.float()
-    dsk = dskips.to(cdt).float().reshape(B * T, -1)
+    dsk = dskips.to(cdt).float().reshape(B * Tn, -1)
     condf = cond.float()
-    dcond = torch.zeros(condf.shape, dtype=f, device=h0.device)
-    dgc = torch.zeros((B, nl, 2 * R), dtype=f, device=h0.device)
+    dcond = torch.zeros(condf.shape, dtype=f, device=dev)
+    dgc = torch.zeros((B, nl, 2 * R), dtype=f, device=dev)
     dwff, dvc, dwr, dbr, dws = [], [], [], [], []
     for li in reversed(range(nl)):
         dil = dils[li]
         hin = hall[li]
-        ph = torch.cat([_shift_right(hin, dil), hin], -1).float()
+        ph = torch.cat([_shift_right(hin, dil)[:, hoff:], hin[:, hoff:]],
+                       -1).float()
         g = gall[:, li]
         ta, sb = g[..., :R].float(), g[..., R:].float()
-        z = (ta * sb).to(cdt).float().reshape(B * T, R)
-        dh_c = dh.to(cdt).float().reshape(B * T, R)
+        z = (ta * sb).to(cdt).float().reshape(B * Tn, R)
+        dh_c = dh.to(cdt).float().reshape(B * Tn, R)
         dbr.append(dh.sum((0, 1)))
         dwr.append(z.T @ dh_c)
         dws.append(z.T @ dsk)
         dz = (dh_c @ wr[li].float().T + dsk @ ws[li].float().T
-              ).reshape(B, T, R)
+              ).reshape(B, Tn, R)
         du_g = torch.cat([dz * sb * (1.0 - ta * ta),
                           dz * ta * sb * (1.0 - sb)], -1)
         du = du_g.to(cdt).float()
         dgc[:, li] = du_g.sum(1)
-        dwff.append(ph.reshape(B * T, -1).T @ du.reshape(B * T, -1))
-        dvc.append(condf.reshape(B * T, -1).T @ du.reshape(B * T, -1))
+        dwff.append(ph.reshape(B * Tn, -1).T @ du.reshape(B * Tn, -1))
+        dvc.append(condf.reshape(B * Tn, -1).T @ du.reshape(B * Tn, -1))
         dcond = dcond + du @ vc[li].float().T
         dph = du @ wff[li].float().T
-        dh = dh + dph[..., R:] + _shift_left(dph[..., :R], dil)
+        dph_a = dph[..., :R]
+        shifted = _shift_left(dph_a, dil)
+        if spill is not None:
+            shifted = shifted.clone()
+            shifted[:, Tn - dil:] += spill[li, :, :dil]
+            spill[li, :, :dil] = dph_a[:, :dil]
+        dh = dh + dph[..., R:] + shifted
 
     def stack(xs):
         return torch.stack(xs[::-1])
     return (dh, dcond, dgc, stack(dwff), stack(dvc), stack(dwr), stack(dbr),
             stack(dws))
+
+
+def bwd_plain(dils: Sequence[int], h0, cond, gc, wff, vc, wr, br, ws, gall,
+              dhout, dskips):
+    """Save-gates backward: float32 (dh, dcond, dgc, dwff, dvc, dwr,
+    dbr, dws) of one chunk from its input h0 and the saved gates."""
+    cdt = h0.dtype
+    R = h0.shape[-1]
+    hall, h = [], h0
+    for li in range(len(dils)):     # pass 1: the residual chain only
+        hall.append(h)
+        g = gall[:, li]
+        z = (g[..., :R].float() * g[..., R:].float()).to(cdt)
+        h = _residual(h, z, wr[li], br[li])
+    return _sweep_plain(dils, hall, cond, wff, vc, wr, ws, gall, dhout,
+                        dskips)
+
+
+def bwd_rec_plain(dils: Sequence[int], h0, cond, gc, wff, vc, wr, br, ws,
+                  dhout, dskips):
+    """Recompute backward: the same gradients with no saved gates; pass
+    1 recomputes the forward's chain (its own rounding points)."""
+    hall, gall, _, _ = _chain(dils, h0, cond, gc, wff, vc, wr, br)
+    return _sweep_plain(dils, hall, cond, wff, vc, wr, ws, gall, dhout,
+                        dskips)
+
+
+def bwd_win_plain(dils: Sequence[int], n_windows: int, h0, cond, gc, wff,
+                  vc, wr, br, ws, dhout, dskips):
+    """Time-windowed recompute backward (port of ``_bwd_kernel_windowed``):
+    the recompute over right-to-left windows with a ``sum(dils)`` halo;
+    the same float32 gradients as ``bwd_rec_plain`` up to the order in
+    which the weight gradients sum."""
+    B, T, R = h0.shape
+    nl = len(dils)
+    Tc, A, W = window_geometry(T, n_windows, dils)
+    f, dev = torch.float32, h0.device
+    hpad = torch.nn.functional.pad(h0, (0, 0, A, 0))
+    condpad = torch.nn.functional.pad(cond, (0, 0, A, 0))
+    spill = torch.zeros((nl, B, max(dils), R), dtype=f, device=dev)
+    dh = torch.empty((B, T, R), dtype=f, device=dev)
+    dcond = torch.empty(cond.shape, dtype=f, device=dev)
+    grads = None
+    for j in range(n_windows):               # right to left
+        t0 = (n_windows - 1 - j) * Tc
+        neg = (torch.arange(W, device=dev) + (t0 - A) < 0)[None, :, None]
+        hall, gall, _, _ = _chain(dils, hpad[:, t0:t0 + W],
+                                  condpad[:, t0:t0 + W], gc, wff, vc, wr, br,
+                                  neg=neg)
+        out = _sweep_plain(dils, hall, cond[:, t0:t0 + Tc], wff, vc, wr, ws,
+                           gall[:, :, A:], dhout[:, t0:t0 + Tc],
+                           dskips[:, t0:t0 + Tc], hoff=A, spill=spill)
+        dh[:, t0:t0 + Tc], dcond[:, t0:t0 + Tc] = out[0], out[1]
+        grads = out[2:] if grads is None else tuple(
+            a + b for a, b in zip(grads, out[2:]))
+    return (dh, dcond) + grads
 
 
 def embed_grads_plain(ids, dh, cdt, mu: int):
@@ -182,12 +295,16 @@ def _library():
     if _lib is None:
         lib = ctypes.CDLL(str(build("vqvae_wavenet_train",
                                     ["wavenet_train.cu"])))
-        p, i = ctypes.c_void_p, ctypes.c_int
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.vqvae_chunk_fwd.argtypes = [i] * 9 + [p] * 20
-        lib.vqvae_chunk_fwd.restype = i
-        lib.vqvae_chunk_bwd.argtypes = ([i] * 9 + [p] * 23
-                                        + [ctypes.c_longlong] + [p] * 9)
-        lib.vqvae_chunk_bwd.restype = i
+        lib.vqvae_chunk_bwd.argtypes = [i] * 9 + [p] * 23 + [ll] + [p] * 9
+        lib.vqvae_chunk_bwd_rec.argtypes = ([i] * 9 + [p] * 26 + [ll]
+                                            + [p] * 9)
+        lib.vqvae_chunk_bwd_win.argtypes = ([i] * 7 + [p, i] + [p] * 22
+                                            + [ll] + [p] * 9)
+        for fn in (lib.vqvae_chunk_fwd, lib.vqvae_chunk_bwd,
+                   lib.vqvae_chunk_bwd_rec, lib.vqvae_chunk_bwd_win):
+            fn.restype = i
         _lib = lib
     return _lib
 
@@ -256,10 +373,32 @@ class _Shapes:
             raise ValueError(f"ids must lie in [0, {self.mu})")
         return ids
 
+    def cotangents(self, dhout, dskips):
+        dhout = dhout.to(self.cdt).contiguous()
+        dskips = dskips.to(self.cdt).contiguous()
+        _check("dhout", dhout, (self.B, self.T, self.R), self.cdt, self.dev)
+        _check("dskips", dskips, (self.B, self.T, self.S), self.cdt,
+               self.dev)
+        return dhout, dskips
+
+    def part_cap(self, rows):
+        """float32 words of the split-K scratch for ``rows`` rows."""
+        return max(1 << 22, (rows // 256 + self.B + 1) * 2 * self.R,
+                   2 * self.mu * 16 * self.R)
+
+    def grads(self):
+        R, S, d, nl = self.R, self.S, self.d, self.nl
+        shapes = dict(dgc=(self.B, nl, 2 * R), dwff=(nl, 2 * R, 2 * R),
+                      dvc=(nl, d, 2 * R), dwr=(nl, R, R), dbr=(nl, R),
+                      dws=(nl, R, S))
+        return {k: self.empty(*v, dtype=torch.float32)
+                for k, v in shapes.items()}
+
 
 def fwd_kernel(dils, mode, x, wemb, bemb, cond, gc, wff, vc, wr, br, ws,
-               tail):
-    """The kernel's (h_out, skips, gall); see ``fwd_plain``."""
+               tail, save_gates=True):
+    """The kernel's (h_out, skips, gall); see ``fwd_plain``.  Without
+    ``save_gates`` no gates are written and gall is None."""
     global launches_fwd
     sh = _Shapes(dils, mode, x, wemb, cond, ws)
     B, T, R, S, nl = sh.B, sh.T, sh.R, sh.S, sh.nl
@@ -275,8 +414,8 @@ def fwd_kernel(dils, mode, x, wemb, bemb, cond, gc, wff, vc, wr, br, ws,
         h = x.contiguous()
     tail = tail.contiguous() if mode == ACC else tail.reshape(-1).contiguous()
     _check("tail", tail, (B, T, S) if mode == ACC else (S,), sh.cdt, sh.dev)
-    h_out, skips, gall = (sh.empty(B, T, R), sh.empty(B, T, S),
-                          sh.empty(B, nl, T, 2 * R))
+    h_out, skips = sh.empty(B, T, R), sh.empty(B, T, S)
+    gall = sh.empty(B, nl, T, 2 * R) if save_gates else None
     skf = sh.empty(B, T, S if nl > 1 else 0, dtype=torch.float32)
     # every tensor the kernels touch stays referenced until the call ends
     tensors = [h, ids, wemb, bemb, *args, tail, sh.empty(B, T, R),
@@ -290,34 +429,32 @@ def fwd_kernel(dils, mode, x, wemb, bemb, cond, gc, wff, vc, wr, br, ws,
     return h_out, skips, gall
 
 
+def _lead(sh, x, bemb):
+    """(h0, ids, bemb) as the backward kernels take them."""
+    if sh.embed:
+        return None, sh.ids(x), bemb.reshape(-1).contiguous()
+    return x.contiguous(), None, bemb
+
+
 def bwd_kernel(dils, mode, x, wemb, bemb, cond, gc, wff, vc, wr, br, ws,
                gall, dhout, dskips):
-    """The kernel's float32 (dh, dcond, dgc, dwff, dvc, dwr, dbr, dws,
-    dwemb, dbemb); dh is None with ``embed``, dwemb and dbemb without."""
+    """The save-gates kernel's float32 (dh, dcond, dgc, dwff, dvc, dwr,
+    dbr, dws, dwemb, dbemb); dh is None with ``embed``, dwemb and dbemb
+    without."""
     global launches_bwd
     sh = _Shapes(dils, mode, x, wemb, cond, ws)
     B, T, R, S, d, nl, mu = sh.B, sh.T, sh.R, sh.S, sh.d, sh.nl, sh.mu
     args = [t.contiguous() for t in (cond, gc, wff, vc, wr, br, ws)]
     sh.check_weights(*args)
     cond, gc, wff, vc, wr, br, ws = args
-    h0 = ids = None
-    if sh.embed:
-        ids = sh.ids(x)
-        bemb = bemb.reshape(-1).contiguous()
-    else:
-        h0 = x.contiguous()
+    h0, ids, bemb = _lead(sh, x, bemb)
     _check("gall", gall, (B, nl, T, 2 * R), sh.cdt, sh.dev)
-    dhout = dhout.to(sh.cdt).contiguous()
-    dskips = dskips.to(sh.cdt).contiguous()
-    _check("dskips", dskips, (B, T, S), sh.cdt, sh.dev)
+    dhout, dskips = sh.cotangents(dhout, dskips)
     f32 = torch.float32
     dh0, dh1 = sh.empty(B, T, R, dtype=f32), sh.empty(B, T, R, dtype=f32)
     dcond = sh.empty(B, T, d, dtype=f32)
-    cap = max(1 << 22, (B * T // 256 + B + 1) * 2 * R, 2 * mu * 16 * R)
-    grads = dict(dgc=(B, nl, 2 * R), dwff=(nl, 2 * R, 2 * R),
-                 dvc=(nl, d, 2 * R), dwr=(nl, R, R), dbr=(nl, R),
-                 dws=(nl, R, S))
-    grads = {k: sh.empty(*v, dtype=f32) for k, v in grads.items()}
+    cap = sh.part_cap(B * T)
+    grads = sh.grads()
     dwemb = sh.empty(2, mu, R, dtype=f32) if sh.embed else None
     dbemb = sh.empty(R, dtype=f32) if sh.embed else None
     tr = [t.transpose(1, 2).contiguous() for t in (wff, vc, wr, ws)]
@@ -337,6 +474,84 @@ def bwd_kernel(dils, mode, x, wemb, bemb, cond, gc, wff, vc, wr, br, ws,
     return (dh, dcond, *grads.values(), dwemb, dbemb)
 
 
+def bwd_rec_kernel(dils, mode, x, wemb, bemb, cond, gc, wff, vc, wr, br, ws,
+                   dhout, dskips):
+    """The recompute kernel's float32 (dh, dcond, dgc, dwff, dvc, dwr,
+    dbr, dws, dwemb, dbemb), as ``bwd_kernel`` returns them; the gates
+    live only inside this call."""
+    global launches_bwd_rec
+    sh = _Shapes(dils, mode, x, wemb, cond, ws)
+    B, T, R, S, d, nl, mu = sh.B, sh.T, sh.R, sh.S, sh.d, sh.nl, sh.mu
+    args = [t.contiguous() for t in (cond, gc, wff, vc, wr, br, ws)]
+    sh.check_weights(*args)
+    cond, gc, wff, vc, wr, br, ws = args
+    h0, ids, bemb = _lead(sh, x, bemb)
+    if sh.embed:
+        _check("wemb", wemb, (2, mu, R), sh.cdt, sh.dev)
+    dhout, dskips = sh.cotangents(dhout, dskips)
+    f32 = torch.float32
+    dh0 = sh.empty(B, T, R, dtype=f32)
+    dcond = sh.empty(B, T, d, dtype=f32)
+    cap = sh.part_cap(B * T)
+    grads = sh.grads()
+    dwemb = sh.empty(2, mu, R, dtype=f32) if sh.embed else None
+    dbemb = sh.empty(R, dtype=f32) if sh.embed else None
+    tr = [t.transpose(1, 2).contiguous() for t in (wff, vc, wr, ws)]
+    # every tensor the kernels touch stays referenced until the call ends
+    tensors = [h0, ids, wemb, bemb, cond, gc, wff, vc, wr, br, *tr, dhout,
+               dskips, sh.empty(nl, B, T, R), sh.empty(B, nl, T, 2 * R), dh0,
+               sh.empty(B, T, R, dtype=f32), sh.empty(B, T, R, dtype=f32),
+               dcond, sh.empty(B, T, R), sh.empty(B, T, 2 * R, dtype=f32),
+               sh.empty(cap, dtype=f32)]
+    outs = [*grads.values(), dwemb, dbemb]
+    err = _library().vqvae_chunk_bwd_rec(
+        _CDTYPE[sh.cdt], int(sh.embed), B, T, R, S, d, mu, nl, sh.dils,
+        *map(_ptr, tensors), cap, *map(_ptr, outs), _stream(sh.dev))
+    if err != 0:
+        raise RuntimeError(f"chunk recompute backward kernel failed: error "
+                           f"{err}")
+    launches_bwd_rec += 1
+    return (None if sh.embed else dh0, dcond, *grads.values(), dwemb, dbemb)
+
+
+def bwd_win_kernel(dils, n_windows, x, cond, gc, wff, vc, wr, br, ws, dhout,
+                   dskips):
+    """The windowed kernel's float32 (dh, dcond, dgc, dwff, dvc, dwr,
+    dbr, dws); x is the chunk input h (no embed variant).  Its scratch
+    is window-sized."""
+    global launches_bwd_win
+    sh = _Shapes(dils, SEED, x, None, cond, ws)
+    B, T, R, S, d, nl = sh.B, sh.T, sh.R, sh.S, sh.d, sh.nl
+    Tc, _, W = window_geometry(T, n_windows, dils)
+    args = [t.contiguous() for t in (cond, gc, wff, vc, wr, br, ws)]
+    sh.check_weights(*args)
+    cond, gc, wff, vc, wr, br, ws = args
+    h0 = x.contiguous()
+    dhout, dskips = sh.cotangents(dhout, dskips)
+    f32 = torch.float32
+    dh = sh.empty(B, T, R, dtype=f32)
+    dcond = sh.empty(B, T, d, dtype=f32)
+    cap = sh.part_cap(B * Tc)
+    grads = sh.grads()
+    tr = [t.transpose(1, 2).contiguous() for t in (wff, vc, wr, ws)]
+    # every tensor the kernels touch stays referenced until the call ends
+    tensors = [h0, cond, gc, wff, vc, wr, br, *tr, dhout, dskips,
+               sh.empty(nl, B, W, R), sh.empty(B, nl, Tc, 2 * R),
+               sh.empty(nl, B, max(dils), R, dtype=f32),
+               sh.empty(B, Tc, R, dtype=f32), sh.empty(B, Tc, R, dtype=f32),
+               sh.empty(B, Tc, R, dtype=f32), sh.empty(B, Tc, R),
+               sh.empty(B, Tc, 2 * R, dtype=f32), sh.empty(cap, dtype=f32)]
+    outs = [dh, dcond, *grads.values()]
+    err = _library().vqvae_chunk_bwd_win(
+        _CDTYPE[sh.cdt], B, T, R, S, d, nl, sh.dils, n_windows,
+        *map(_ptr, tensors), cap, *map(_ptr, outs), _stream(sh.dev))
+    if err != 0:
+        raise RuntimeError(f"chunk windowed backward kernel failed: error "
+                           f"{err}")
+    launches_bwd_win += 1
+    return (dh, dcond, *grads.values(), None, None)
+
+
 # ---------------------------------------------------------------------------
 # dispatch and autograd
 # ---------------------------------------------------------------------------
@@ -351,26 +566,44 @@ def _on_card(t: torch.Tensor) -> bool:
 
 
 def chunk_forward(dils, mode, x, wemb, bemb, cond, gc, wff, vc, wr, br, ws,
-                  tail):
+                  tail, save_gates=True):
     """(h_out, skips, gall): the kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    version for CPU tensors; gall is None without ``save_gates``."""
     if _on_card(cond):
         return fwd_kernel(dils, mode, x, wemb, bemb, cond, gc, wff, vc, wr,
-                          br, ws, tail)
+                          br, ws, tail, save_gates)
     h = embed_h(x, wemb, bemb) if mode == EMBED else x
-    return fwd_plain(dils, h, cond, gc, wff, vc, wr, br, ws, tail,
-                     mode == ACC)
+    h_out, skips, gall = fwd_plain(dils, h, cond, gc, wff, vc, wr, br, ws,
+                                   tail, mode == ACC)
+    return h_out, skips, gall if save_gates else None
 
 
 def chunk_backward(dils, mode, x, wemb, bemb, cond, gc, wff, vc, wr, br, ws,
-                   gall, dhout, dskips):
-    """Float32 (dh, dcond, dgc, dwff, dvc, dwr, dbr, dws, dwemb, dbemb)."""
+                   gall, dhout, dskips, windows=0):
+    """Float32 (dh, dcond, dgc, dwff, dvc, dwr, dbr, dws, dwemb, dbemb):
+    the save-gates backward when ``gall`` is given, else the recompute
+    backward, time-windowed when ``windows > 1`` (never for the embed
+    chunk, as the JAX package passes 0 there)."""
+    windowed = gall is None and windows > 1 and mode != EMBED
+    if windowed:
+        window_geometry(x.shape[1], windows, dils)   # raises on bad counts
     if _on_card(cond):
-        return bwd_kernel(dils, mode, x, wemb, bemb, cond, gc, wff, vc, wr,
-                          br, ws, gall, dhout, dskips)
+        if gall is not None:
+            return bwd_kernel(dils, mode, x, wemb, bemb, cond, gc, wff, vc,
+                              wr, br, ws, gall, dhout, dskips)
+        if windowed:
+            return bwd_win_kernel(dils, windows, x, cond, gc, wff, vc, wr,
+                                  br, ws, dhout, dskips)
+        return bwd_rec_kernel(dils, mode, x, wemb, bemb, cond, gc, wff, vc,
+                              wr, br, ws, dhout, dskips)
     h0 = embed_h(x, wemb, bemb) if mode == EMBED else x
-    out = bwd_plain(dils, h0, cond, gc, wff, vc, wr, br, ws, gall, dhout,
-                    dskips)
+    w = (cond, gc, wff, vc, wr, br, ws)
+    if gall is not None:
+        out = bwd_plain(dils, h0, *w, gall, dhout, dskips)
+    elif windowed:
+        out = bwd_win_plain(dils, windows, h0, *w, dhout, dskips)
+    else:
+        out = bwd_rec_plain(dils, h0, *w, dhout, dskips)
     if mode != EMBED:
         return out + (None, None)
     dwemb, dbemb = embed_grads_plain(x, out[0], h0.dtype, wemb.shape[1])
@@ -378,16 +611,19 @@ def chunk_backward(dils, mode, x, wemb, bemb, cond, gc, wff, vc, wr, br, ws,
 
 
 class Chunk(torch.autograd.Function):
-    """One chunk with the save-gates backward; ``mode`` is SEED (tail =
-    the summed skip bias), ACC (tail = the running skips, whose
-    cotangent passes through) or EMBED (x = ids, tail = the bias)."""
+    """One chunk; ``mode`` is SEED (tail = the summed skip bias), ACC
+    (tail = the running skips, whose cotangent passes through) or EMBED
+    (x = ids, tail = the bias).  With ``save_gates`` (the default) the
+    forward keeps the gate halves for the backward; without, it keeps
+    only its inputs and the backward recomputes (over ``windows`` time
+    windows when > 1)."""
 
     @staticmethod
     def forward(ctx, dils, mode, x, wemb, bemb, cond, gc, wff, vc, wr, br,
-                ws, tail):
+                ws, tail, save_gates=True, windows=0):
         h, skips, gall = chunk_forward(dils, mode, x, wemb, bemb, cond, gc,
-                                       wff, vc, wr, br, ws, tail)
-        ctx.dils, ctx.mode = dils, mode
+                                       wff, vc, wr, br, ws, tail, save_gates)
+        ctx.dils, ctx.mode, ctx.windows = dils, mode, windows
         ctx.tail_meta = (tail.shape, tail.dtype)
         ctx.save_for_backward(x, wemb, bemb, cond, gc, wff, vc, wr, br, ws,
                               gall)
@@ -399,7 +635,7 @@ class Chunk(torch.autograd.Function):
             ctx.saved_tensors
         dh, dcond, dgc, dwff, dvc, dwr, dbr, dws, dwemb, dbemb = \
             chunk_backward(ctx.dils, ctx.mode, x, wemb, bemb, cond, gc, wff,
-                           vc, wr, br, ws, gall, dhout, dskips)
+                           vc, wr, br, ws, gall, dhout, dskips, ctx.windows)
         if ctx.mode == ACC:
             dtail = dskips                    # d(skips)/d(skips_in) = 1
         else:
@@ -412,7 +648,7 @@ class Chunk(torch.autograd.Function):
             lead = (dh.to(x.dtype), None, None)
         return (None, None, *lead, dcond.to(cond.dtype), dgc.to(gc.dtype),
                 dwff.to(wff.dtype), dvc.to(vc.dtype), dwr.to(wr.dtype),
-                dbr.to(br.dtype), dws.to(ws.dtype), dtail)
+                dbr.to(br.dtype), dws.to(ws.dtype), dtail, None, None)
 
 
 def decoder_stack(params, cfg, h, cond: torch.Tensor, gcond: torch.Tensor,
@@ -421,8 +657,14 @@ def decoder_stack(params, cfg, h, cond: torch.Tensor, gcond: torch.Tensor,
     ``MAX_CHUNK_LAYERS`` layers (port of ``decoder_stack_pallas``):
     returns skips ``[B, T, S]``.  With ``ids`` (and ``h=None``) the
     first chunk embeds the ids itself; later chunks chain the skip sum
-    (ACC)."""
+    (ACC).  ``decoder_kernel="pallas_sg"`` saves the gates, ``"pallas"``
+    recomputes (time-windowed with ``bwd_time_windows > 1``); ``remat``
+    recomputes each chunk's forward in the backward as well
+    (``torch.utils.checkpoint``, as the JAX package wraps each chunk in
+    ``jax.checkpoint``)."""
     cdt = cfg.cdtype
+    save_gates = cfg.decoder_kernel == "pallas_sg"
+    windows = 0 if save_gates else cfg.bwd_time_windows
     lay = params["layers"]
     wf = lay["wf"].to(cdt)
     wff = torch.cat([wf[:, 0], wf[:, 1]], dim=1)          # [L, 2R, 2R]
@@ -434,14 +676,20 @@ def decoder_stack(params, cfg, h, cond: torch.Tensor, gcond: torch.Tensor,
     n_chunks = -(-L // MAX_CHUNK_LAYERS)
     per = -(-L // n_chunks)
     skips = lay["bs"].to(cdt).sum(0)                      # [S]
+
+    def chunk(*args):
+        if cfg.remat:
+            return torch.utils.checkpoint.checkpoint(
+                Chunk.apply, *args, use_reentrant=False)
+        return Chunk.apply(*args)
+
     for i, l0 in enumerate(range(0, L, per)):
         s = slice(l0, min(l0 + per, L))
         w = (cond, gct[:, s], wff[s], vc[s], wr[s], br[s], ws[s], skips)
         if i == 0 and ids is not None:
-            h, skips = Chunk.apply(dils[s], EMBED, ids,
-                                   params["emb"]["w"].to(cdt),
-                                   params["emb"]["b"].to(cdt), *w)
+            h, skips = chunk(dils[s], EMBED, ids, params["emb"]["w"].to(cdt),
+                             params["emb"]["b"].to(cdt), *w, save_gates, 0)
         else:
-            h, skips = Chunk.apply(dils[s], SEED if i == 0 else ACC, h, None,
-                                   None, *w)
+            h, skips = chunk(dils[s], SEED if i == 0 else ACC, h, None, None,
+                             *w, save_gates, windows)
     return skips

@@ -41,23 +41,33 @@ def init_vq_state(params) -> VQState:
                    sum=cb.to(torch.float32).clone())
 
 
-def nearest_code(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+def nearest_code(z: torch.Tensor, codebook: torch.Tensor,
+                 impl: str = "lax") -> torch.Tensor:
     """Indices ``[...]`` (int64) of the L2-nearest codebook row for each
     z vector: ``argmax(2·z·cbᵀ − ‖cb‖²)``, ties to the first index.
-    Scores are summed in float64 so a row's code does not depend on how
-    many rows share the call (see ``ops/conv.py``)."""
+    ``impl="lax"`` sums the scores in float64, so a row's code does not
+    depend on how many rows share the call (see ``ops/conv.py``; the
+    streaming encoder's exactness rests on it).  ``impl="pallas"`` is
+    the float32 search of the VQ kernel (``kernels/vq_cuda.py``)."""
+    if impl == "pallas":
+        from vqvae_tpu_torch.kernels.vq_cuda import vq_argmin
+        flat = z.detach().reshape(-1, z.shape[-1])
+        return vq_argmin(flat, codebook.detach()).long().reshape(
+            z.shape[:-1])
+    if impl != "lax":
+        raise ValueError(f"unknown VQ impl {impl!r} (lax or pallas)")
     zd, cbd = z.detach().double(), codebook.detach().double()
     scores = (zd @ cbd.T) * 2.0 - torch.sum(cbd * cbd, dim=-1)
     return torch.argmax(scores, dim=-1)
 
 
-def quantize(params, z: torch.Tensor
+def quantize(params, z: torch.Tensor, impl: str = "lax"
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """z_e ``[..., d]`` -> (e straight-through, e raw, indices).  The
     search runs on detached inputs; ``e`` keeps the codebook's graph
     (loss2), ``e_st`` passes its cotangent to z unchanged."""
     codebook = params["codebook"].to(z.dtype)
-    idx = nearest_code(z, codebook)
+    idx = nearest_code(z, codebook, impl)
     e = codebook[idx]
     e_st = z + (e - z).detach()
     return e_st, e, idx

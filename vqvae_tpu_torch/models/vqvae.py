@@ -46,19 +46,22 @@ def init_vq_state(params) -> vq_mod.VQState:
     return vq_mod.init_vq_state(params["vq"])
 
 
-def encode(params, cfg: ModelConfig, wav: torch.Tensor) -> torch.Tensor:
-    """Waveform ``[B, T]`` -> code ids ``[B, T/hop]``."""
+def encode(params, cfg: ModelConfig, wav: torch.Tensor,
+           impl: str = "lax") -> torch.Tensor:
+    """Waveform ``[B, T]`` -> code ids ``[B, T/hop]``; ``impl`` picks
+    the search (``models/vq.py::nearest_code``)."""
     z = apply_encoder(params["encoder"], cfg, wav)
-    return nearest_code(z, params["vq"]["codebook"].to(z.dtype))
+    return nearest_code(z, params["vq"]["codebook"].to(z.dtype), impl)
 
 
-def forward(params, cfg: ModelConfig, batch: Batch
+def forward(params, cfg: ModelConfig, batch: Batch, impl: str = "lax"
             ) -> Tuple[torch.Tensor, Tuple[Dict, Dict]]:
     """Training forward: (total loss, (metrics, aux)).  Metric names
-    follow the reference's reports (loss1/loss2/loss3).  The JAX
-    package's sequence-parallel branch is not ported (ROADMAP A8)."""
+    follow the reference's reports (loss1/loss2/loss3); ``impl`` picks
+    the VQ search.  The JAX package's sequence-parallel branch is not
+    ported (ROADMAP A8)."""
     z = apply_encoder(params["encoder"], cfg, batch.wav)   # [B, Tl, d] f32
-    e_st, e, idx = quantize(params["vq"], z)
+    e_st, e, idx = quantize(params["vq"], z, impl)
     loss2, loss3 = vq_losses(z, e)
     cond = upsample_cond(params["decoder"], cfg, e_st)     # [B, T, d]
     skips = decoder_skips(params["decoder"], cfg, batch.ids_in, cond,

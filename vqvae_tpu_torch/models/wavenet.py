@@ -27,6 +27,7 @@ import math
 from typing import Dict, List, NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
 from vqvae_tpu_torch.configs import ModelConfig
 from vqvae_tpu_torch.ops.conv import (
@@ -121,26 +122,17 @@ def decoder_skips(params, cfg: ModelConfig, ids_in: torch.Tensor,
                   cond: torch.Tensor, speaker: torch.Tensor) -> torch.Tensor:
     """The gated-residual stack up to the head: summed skips
     ``[B, T, S]`` in the compute dtype.  ``decoder_kernel`` picks the
-    path: ``xla`` the plain layer loop, ``pallas_sg`` the fused chunk
-    kernels with saved gates (``kernels/wavenet_train_cuda.py``)."""
+    path: ``xla`` the plain layer loop, ``pallas`` the fused chunk
+    kernels with the recompute backward (time-windowed with
+    ``bwd_time_windows > 1``), ``pallas_sg`` the fused chunk kernels
+    with saved gates (``kernels/wavenet_train_cuda.py``).  ``remat``
+    recomputes each chunk (kernel paths) or each layer (``xla``) in the
+    backward, as the JAX package wraps them in ``jax.checkpoint``."""
     R, cdt = cfg.residual_channels, cfg.cdtype
-    if cfg.remat:
-        raise NotImplementedError(
-            "remat=True is not ported yet (ROADMAP B3: the recompute "
-            "backward); use remat=False")
-    if cfg.decoder_kernel == "pallas":
-        raise NotImplementedError(
-            "decoder_kernel='pallas' (the recompute backward of the fused "
-            "chunk) is not ported yet (ROADMAP B3); use 'pallas_sg' or "
-            "'xla'")
-    if cfg.bwd_time_windows > 1:
-        raise NotImplementedError(
-            "bwd_time_windows > 1 (the time-windowed backward) is not "
-            "ported yet (ROADMAP B12)")
     lay = params["layers"]
     cond = cond.to(cdt)
     gcond = global_cond(params, cfg, speaker)
-    if cfg.decoder_kernel == "pallas_sg":
+    if cfg.decoder_kernel in ("pallas", "pallas_sg"):
         from vqvae_tpu_torch.kernels.wavenet_train_cuda import decoder_stack
         if cfg.embed_in_kernel:
             return decoder_stack(params, cfg, None, cond, gcond, ids=ids_in)
@@ -148,16 +140,25 @@ def decoder_skips(params, cfg: ModelConfig, ids_in: torch.Tensor,
                              cond, gcond)
     if cfg.decoder_kernel != "xla":
         raise ValueError(f"unknown decoder_kernel {cfg.decoder_kernel!r}")
+
+    def layer(h, skips, wf, vc, gc, wr, br, ws, bs, dil):
+        u = shift_right(h, dil) @ wf[0] + h @ wf[1]
+        u = u + cond @ vc + gc[:, None, :]
+        z = _gate(u, R)
+        return h + z @ wr + br, skips + z @ ws + bs
+
     h = embed_inputs(params, cfg, ids_in)
     skips = torch.zeros(h.shape[0], h.shape[1], cfg.skip_channels,
                         dtype=cdt, device=h.device)
     for li, dil in enumerate(cfg.dilations):
-        wf = lay["wf"][li].to(cdt)
-        u = shift_right(h, dil) @ wf[0] + h @ wf[1]
-        u = u + cond @ lay["vc"][li].to(cdt) + gcond[li][:, None, :]
-        z = _gate(u, R)
-        h = h + z @ lay["wr"][li].to(cdt) + lay["br"][li].to(cdt)
-        skips = skips + z @ lay["ws"][li].to(cdt) + lay["bs"][li].to(cdt)
+        args = (h, skips, lay["wf"][li].to(cdt), lay["vc"][li].to(cdt),
+                gcond[li], lay["wr"][li].to(cdt), lay["br"][li].to(cdt),
+                lay["ws"][li].to(cdt), lay["bs"][li].to(cdt), dil)
+        if cfg.remat:
+            h, skips = torch.utils.checkpoint.checkpoint(
+                layer, *args, use_reentrant=False)
+        else:
+            h, skips = layer(*args)
     return skips
 
 

@@ -26,15 +26,16 @@ PicksFn = Callable[[int, int, int, torch.device], torch.Tensor]
 
 
 def train_step(state: TrainState, wav: torch.Tensor, speaker: torch.Tensor,
-               cfg: Config, picks: Optional[PicksFn] = None
-               ) -> Dict[str, torch.Tensor]:
+               cfg: Config, picks: Optional[PicksFn] = None,
+               impl: str = "lax") -> Dict[str, torch.Tensor]:
     """One update in place.  wav ``[B, length+1]`` raw float slices,
-    speaker ``[B]``, both on the training device.  Returns the metrics
-    as 0-d tensors (reading them synchronises with the device)."""
+    speaker ``[B]``, both on the training device; ``impl`` picks the VQ
+    search.  Returns the metrics as 0-d tensors (reading them
+    synchronises with the device)."""
     mcfg = cfg.model
     batch = frame_batch(wav, speaker, mcfg.mu, mcfg.mulaw_mode)
     state.opt.zero_grad(set_to_none=True)
-    loss, (metrics, aux) = forward(state.params, mcfg, batch)
+    loss, (metrics, aux) = forward(state.params, mcfg, batch, impl)
     loss.backward()
     state.opt.step()
     thr = mcfg.code_restart_threshold
@@ -66,8 +67,8 @@ def _default_picks(cfg: Config) -> PicksFn:
 
 @torch.no_grad()
 def eval_step(params, wav: torch.Tensor, speaker: torch.Tensor,
-              cfg: Config) -> Dict[str, torch.Tensor]:
+              cfg: Config, impl: str = "lax") -> Dict[str, torch.Tensor]:
     """Validation forward: the same forward, no update."""
     batch = frame_batch(wav, speaker, cfg.model.mu, cfg.model.mulaw_mode)
-    _, (metrics, _) = forward(params, cfg.model, batch)
+    _, (metrics, _) = forward(params, cfg.model, batch, impl)
     return metrics
