@@ -10,13 +10,16 @@ nonzero:
 
 1. device  — the card's name and power limit (nvidia-smi); CUDA must be
              available; TF32 off for the plain references.
-2. build   — compile ``vqvae_tpu_torch/csrc/decode.cu`` with nvcc.
+2. build   — compile the port's five CUDA sources
+             (``vqvae_tpu_torch/csrc/*.cu``), one nvcc each, side by side.
 3. kernel  — the decode kernel against its plain PyTorch version at
              vctk-multi width (seeded random weights), B in {1, 3},
              T = 640, float32 and bfloat16: teacher-forced logits within
              1e-4 (f32) / 3e-2 (bf16) of max|logits|; greedy and sampled
              ids step by step against the plain pick on the kernel's own
-             history, a mismatch allowed only at a near-tie.
+             history, a mismatch allowed only at a near-tie; the teacher
+             logits timed (CUDA events) beside the plain version and the
+             bound.
 4. resume  — resumed kernel pushes equal one kernel call, bit for bit.
 5. serve   — the daemon (``python3 -m vqvae_tpu_torch.cli.serve``) on
              the exported seeded weights, driven over its UNIX socket:
@@ -26,11 +29,13 @@ nonzero:
              shutdown.  The daemon's kernel launch
              count must rise across the requests.
 6. request — one 1 s decode request as the daemon makes it (B=1, bf16,
-             one kernel call over 16000 steps): kernel time against the
-             plain version's, and at that shape, from the state after a
-             first push (t0 > 0, as in a session), teacher-forced logits
-             within 3e-2 of max|logits| of the plain version and the
-             sampled picks against the plain pick.
+             one kernel call over 16000 steps): its kernel time; the kernel
+             against the plain version over a tenth of it (1600 steps: the
+             plain loop takes ~8 ms a step); and at B=1 from the state
+             after a first push of 4096 steps (t0 > 0, as in a session),
+             over the next 4096 steps, teacher-forced logits within 3e-2
+             of max|logits| of the plain version and the sampled picks
+             against the plain pick.
 
 7. train-kernels — the training kernels (chunk forward; the save-gates,
              recompute and time-windowed backwards, the last at 2 and 4
@@ -76,7 +81,27 @@ nonzero:
              the plain decoder; the recompute step's busy share and split
              by kernel; the recompute and windowed backwards and the VQ
              search against their plain versions at these shapes, each
-             timed beside its plain version and its bound.
+             timed beside its plain version and its bound; and the step
+             with the fused encoder (encoder_kernel=pallas).
+12. enc-kernel — the fused encoder's forward and recompute backward
+             against their plain versions at vctk-multi width (C=128, d=64,
+             5 layers, non-zero biases) at B=2 and at the training shape
+             B=16, T=7680, float32 and bfloat16: z and every gradient within
+             1e-4 / 3e-2 of its max; the streaming encoder with the switch
+             equal to one-shot encode bit for bit at two push widths; each
+             kernel timed beside its plain version and its bound, at B=16
+             and at a 1 s encode (B=1, T=16000).
+13. cli-codec — the codec CLIs as subprocesses on vctk-multi: 2 steps of
+             ``vqvae-torch-train --dataset vctk --set
+             model.encoder_kernel=pallas`` (B=16, T=7680; the encoder's
+             backward kernel), ``vqvae-torch-export`` of that run (equal to
+             its weights.npz), ``vqvae-torch-encode`` of a 3 s wav with and
+             without the switch (codes equal above a 1e-4 top-2 margin),
+             ``vqvae-torch-decode`` and ``vqvae-torch-stream`` of those codes
+             (equal, greedy and sampled), ``--gen-impl lowmem`` (equal to
+             one-shot), ``vqvae-torch-generate`` and ``vqvae-torch-score`` on
+             the synthetic VCTK tree; each exits 0, and their launch counts
+             show the encoder's two kernels and the decode kernel launched.
 
 Then one JSON line of per-kernel results and, last, the device line.
 """
@@ -104,6 +129,7 @@ PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
 T_CHECK = 640
 TEMP = 0.9
 FIRST_PUSH = 4096   # steps before the resumed check of the request phase
+RESUMED = 4096      # steps the resumed check holds (plain loop: ~8 ms each)
 
 
 def say(phase, t0, msg):
@@ -161,7 +187,7 @@ def kernel_phase(dc, flag, device):
     import dataclasses
     import torch
     from vqvae_tpu_torch.models.wavenet import global_cond, make_gen_params
-    worst = {}
+    worst, teacher = {}, {}
     for dt, rel_tol in (("float32", 1e-4), ("bfloat16", 3e-2)):
         cfg = dataclasses.replace(flag, compute_dtype=dt)
         params = setup_model(cfg, device)
@@ -181,7 +207,16 @@ def kernel_phase(dc, flag, device):
                                  state0, x)[0]
 
             lk = dc.teacher_logits(gp, cfg, ids, cond, gcond)
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
             lp = plain_logits(ids)
+            e1.record()
+            torch.cuda.synchronize()
+            plain_ms = e0.elapsed_time(e1)
+            ms = cuda_ms(lambda: dc.teacher_logits(gp, cfg, ids, cond, gcond))
+            bms, bby = bound(*teacher_work(cfg, B, T_CHECK))
+            teacher[(dt, B)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                                    bound_by=bby)
             scale = float(lp.abs().max())
             err = float((lk - lp).abs().max())
             check(torch.isfinite(lk).all(), "non-finite kernel logits")
@@ -210,8 +245,9 @@ def kernel_phase(dc, flag, device):
             say("kernel", t0, f"{dt} B={B} T={T_CHECK}: logits max|d| "
                 f"{err:.3g} <= {rel_tol}*max|logits| = "
                 f"{rel_tol * scale:.3g}; "
-                + "; ".join(lines))
-    return worst
+                + "; ".join(lines) + f"; teacher logits kernel {ms:.2f} ms, "
+                f"plain {plain_ms:.1f} ms, bound {bms:.4f} ms ({bby})")
+    return worst, teacher
 
 
 def resume_phase(dc, flag, device):
@@ -400,8 +436,9 @@ def serve_phase(flag, cfg_all, device, dc):
 def request_phase(dc, flag, device, sr):
     """One 1 s decode request as the daemon makes it: B=1, one kernel
     call over sr steps from t0 = 0.  Times it (CUDA events) against the
-    plain version, then holds the kernel against the plain version at
-    that shape from the state after a first push of FIRST_PUSH steps."""
+    plain version over a tenth of it, then holds the kernel against the
+    plain version over RESUMED steps from the state after a first push of
+    FIRST_PUSH steps."""
     import torch
     from vqvae_tpu_torch.models.wavenet import global_cond, make_gen_params
     t0 = time.monotonic()
@@ -423,21 +460,27 @@ def request_phase(dc, flag, device, sr):
     e1.record()
     torch.cuda.synchronize()
     ms = e0.elapsed_time(e1) / reps
+    # the plain loop takes ~9 ms a step: time both over a tenth
+    T10 = T // 10
+    ms10 = cuda_ms(lambda: dc.generate_ids_resume(gp, flag, cond[:, :T10],
+                                                  gcond, 1, TEMP, st0))
     e0.record()
-    dc._plain(gp, flag, dc.SAMPLE, cond, gcond, 1, TEMP, st0, None)
+    dc._plain(gp, flag, dc.SAMPLE, cond[:, :T10], gcond, 1, TEMP, st0, None)
     e1.record()
     torch.cuda.synchronize()
-    plain_ms = e0.elapsed_time(e1)
+    plain10 = e0.elapsed_time(e1)
     say("request", t0, f"one 1 s request B=1 T={T} {flag.compute_dtype}: "
-        f"kernel {ms:.2f} ms ({1e3 * ms / T:.2f} us/step), plain "
-        f"{plain_ms:.1f} ms ({1e3 * plain_ms / T:.1f} us/step)")
+        f"kernel {ms:.2f} ms ({1e3 * ms / T:.2f} us/step); over its first "
+        f"{T10} steps kernel {ms10:.2f} ms, plain {plain10:.1f} ms "
+        f"({1e3 * plain10 / T10:.1f} us/step)")
 
     t0 = time.monotonic()
     _, st1 = dc.generate_ids_resume(gp, flag, cond[:, :FIRST_PUSH], gcond, 1,
                                     TEMP, st0)
     check(torch.equal(st1.x_last, ids[:, FIRST_PUSH - 1]),
           "the first push does not end where the one call passes")
-    x_in, rest = ids[:, FIRST_PUSH - 1:-1], cond[:, FIRST_PUSH:]
+    end = FIRST_PUSH + RESUMED
+    x_in, rest = ids[:, FIRST_PUSH - 1:end - 1], cond[:, FIRST_PUSH:end]
     lk = dc.teacher_logits(gp, flag, x_in, rest, gcond, st1)
     lp = dc._plain(gp, flag, dc.TEACHER, rest, gcond, 0, 1.0, st1, x_in)[0]
     scale = float(lp.abs().max())
@@ -445,15 +488,16 @@ def request_phase(dc, flag, device, sr):
     check(torch.isfinite(lk).all(), "non-finite kernel logits")
     check(err <= 3e-2 * scale, f"request shape: teacher logits off by {err} "
           f"(max|logits| {scale}, tol 0.03)")
-    n_bad, n_far = pick_mismatches(dc, lp, ids[:, FIRST_PUSH:], False, 1,
+    n_bad, n_far = pick_mismatches(dc, lp, ids[:, FIRST_PUSH:end], False, 1,
                                    FIRST_PUSH, 2 * 3e-2 * scale / TEMP)
     check(n_far == 0, f"request shape: {n_far} sampled kernel picks differ "
           "from the plain pick away from a near-tie")
-    say("request", t0, f"steps {FIRST_PUSH}..{T} resumed from a first push: "
+    say("request", t0, f"steps {FIRST_PUSH}..{end} resumed from a first "
+        f"push: "
         f"logits max|d| {err:.3g} <= 0.03*max|logits| = "
         f"{0.03 * scale:.3g}; "
-        f"sampled near-tie mismatches {n_bad}/{T - FIRST_PUSH}")
-    return ms, plain_ms, err
+        f"sampled near-tie mismatches {n_bad}/{RESUMED}")
+    return ms10, plain10, T10, err
 
 
 def bound(flops, nbytes, peak=PEAK_FLOPS):
@@ -464,11 +508,11 @@ def bound(flops, nbytes, peak=PEAK_FLOPS):
                                        else "bytes")
 
 
-def decode_bound(cfg, B, T):
-    """The decode loop's bound for B rows x T steps: each step's
-    products (30 layers of [past|h]@wff and z@[wr|ws], the condition
-    projection of every layer, the head) and, once, the weights, the
-    condition and the output ids (bf16)."""
+def decode_work(cfg, B, T):
+    """(flops, bytes) of the decode loop for B rows x T steps: each
+    step's products (30 layers of [past|h]@wff and z@[wr|ws], the
+    condition projection of every layer, the head) and, once, the
+    weights, the condition and the output ids (bf16)."""
     R, S, d, mu, L = (cfg.residual_channels, cfg.skip_channels, cfg.d,
                       cfg.mu, cfg.n_layers_total)
     flops = 2 * B * T * (L * (2 * R * 2 * R + R * (R + S)) + d * L * 2 * R
@@ -476,7 +520,32 @@ def decode_bound(cfg, B, T):
     weights = 2 * (L * (4 * R * R + R * (R + S) + R + S) + d * L * 2 * R
                    + 2 * mu * R + S * S + S) + 4 * (S * mu + mu)
     nbytes = weights + 2 * B * T * d + 4 * B * T + 2 * sum(cfg.dilations) * R
-    return bound(flops, nbytes)
+    return flops, nbytes
+
+
+def teacher_work(cfg, B, T):
+    """(flops, bytes) of teacher-forced logits: the decode loop's, with
+    the float32 logits [B, T, mu] written as well."""
+    flops, nbytes = decode_work(cfg, B, T)
+    return flops, nbytes + 4 * B * T * cfg.mu
+
+
+def enc_work(B, M0, C, d, L, backward):
+    """(flops, bytes) of the fused encoder (bf16) on h [B, M0, C]: every
+    real tap of the L layers (2·4·C·C per output row) and the projection;
+    h, the weights and z once.  Backward: the recompute, the weight
+    gradients and the input gradient (each as many operations as the
+    forward's taps) and the projection's two products; h, dz and the
+    weights read, dh0 and the float32 gradients written."""
+    rows = sum(B * (M0 >> (i + 1)) for i in range(L))
+    taps = 2 * 4 * C * C * rows
+    Nz = B * (M0 >> L)
+    weights = 2 * (L * 4 * C * C + C * d) + 4 * (L * C + d)
+    if not backward:
+        return taps + 2 * Nz * C * d, 2 * B * M0 * C + weights + 4 * Nz * d
+    grads = 4 * (L * 4 * C * C + L * C + C * d + d)
+    return (3 * taps + 2 * 2 * Nz * C * d,
+            2 * B * M0 * C + weights + 4 * Nz * d + 2 * B * M0 * C + grads)
 
 
 def chunk_work(mode, B, T, R, S, d, nl, mu, backward):
@@ -1092,7 +1161,9 @@ def train_time_vctk_phase(device, errs):
                 ("windowed-4", dict(decoder_kernel="pallas",
                                     bwd_time_windows=4)),
                 ("save-gates", dict(decoder_kernel="pallas_sg")),
-                ("plain", dict(decoder_kernel="xla")))
+                ("plain", dict(decoder_kernel="xla")),
+                ("recompute, encoder kernel",
+                 dict(decoder_kernel="pallas", encoder_kernel="pallas")))
     for name, kw in settings:
         t0 = time.monotonic()
         step = stepper(kw)
@@ -1186,6 +1257,272 @@ def train_time_vctk_phase(device, errs):
     return out
 
 
+def enc_inputs(cdt, device, B, M0, cfg, seed=0):
+    """Seeded inputs of the fused encoder at the model's widths: h (a
+    post-ReLU first-layer output), the taps, biases (non-zero) and
+    projection of the other layers, and a cotangent dz."""
+    import torch
+    C, d, L = cfg.enc_channels, cfg.d, cfg.enc_layers - 1
+    g = torch.Generator().manual_seed(seed)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g) * scale
+    h = torch.relu(rn(B, M0, C)).to(device, cdt)
+    w = tuple(t.to(device) for t in (rn(L, 4, C, C, scale=(4 * C) ** -0.5),
+                                      rn(L, C, scale=0.3),
+                                      rn(C, d, scale=C ** -0.5),
+                                      rn(d, scale=0.3)))
+    return h, w, rn(B, M0 >> L, d, scale=0.01).to(device)
+
+
+def enc_kernel_phase(device, errs):
+    """The fused encoder's kernels against their plain versions (B=2
+    and B=16 at T=7680, float32 and bfloat16), the streaming encoder
+    under the switch, and each kernel's time at B=16 and at a 1 s
+    encode.  Returns the per-kernel timing entries (B=16)."""
+    import dataclasses
+    import torch
+    from vqvae_tpu_torch.audio.mu_law import mu_law_round_trip
+    from vqvae_tpu_torch.configs import get_config
+    from vqvae_tpu_torch.infer.enc_streaming import StreamingEncoder
+    from vqvae_tpu_torch.infer.fastgen import encode_to_codes
+    from vqvae_tpu_torch.kernels import encoder_cuda as ec
+    cfg_all = get_config(PRESET)
+    mc = cfg_all.model
+    T = cfg_all.data.length
+    M0 = T // mc.enc_stride
+    C, d, L = mc.enc_channels, mc.d, mc.enc_layers - 1
+    for cdt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+        for B in (2, 16):
+            t0 = time.monotonic()
+            h, w, dz = enc_inputs(cdt, device, B, M0, mc, seed=B)
+            rf = compare("encoder_fwd", [ec.fwd_kernel(h, *w)],
+                         [ec.fwd_plain(h, *w)], tol, errs)
+            rb = compare("encoder_bwd", ec.bwd_kernel(h, *w, dz),
+                         ec.bwd_plain(h, *w, dz), tol, errs)
+            torch.cuda.synchronize()
+            say("enc-kernel", t0, f"{str(cdt)[6:]} B={B} h [{B}, {M0}, {C}]"
+                f" {L} layers d={d}: z max rel err {rf:.3g}, backward (dh0,"
+                f" dW, db, dWp, dbp) {rb:.3g} <= {tol}")
+            del h, w, dz
+    torch.cuda.empty_cache()
+
+    # the streaming encoder under the switch == one-shot encode
+    t0 = time.monotonic()
+    cfg = dataclasses.replace(mc, encoder_kernel="pallas")
+    params = setup_model(cfg, device, seed=4)
+    g = torch.Generator().manual_seed(4)
+    with torch.no_grad():       # non-zero biases: the window edges matter
+        for k, v in params.encoder.state_dict().items():
+            if k.endswith(".b"):
+                v.copy_(torch.randn(v.shape, generator=g) * 0.3)
+    rng = np.random.default_rng(5)
+    wav = (0.3 * rng.standard_normal((2, cfg_all.data.sr + 77))).astype(
+        np.float32).clip(-1, 1)
+    Tw = wav.shape[1] // mc.hop * mc.hop
+    ec.launches_fwd = 0
+    with torch.no_grad():
+        want = encode_to_codes(params, cfg, mu_law_round_trip(
+            torch.from_numpy(wav[:, :Tw]), mc.mu, mc.mulaw_mode).to(
+                device)).cpu().numpy()
+    for width in (1000, 4096):
+        enc = StreamingEncoder(params, cfg, device)
+        pieces = [enc.push(wav[:, i:i + width])
+                  for i in range(0, wav.shape[1], width)]
+        pieces.append(enc.flush())
+        check(np.array_equal(np.concatenate(pieces, 1), want),
+              f"streaming encoder (switch on, {width}-sample pushes) != "
+              "one-shot encode")
+    check(ec.launches_fwd > 2, "the streaming encoder did not launch the "
+          "encoder kernel")
+    say("enc-kernel", t0, f"streaming encoder with encoder_kernel=pallas, "
+        f"B=2, {wav.shape[1]} samples in 1000- and 4096-sample pushes == "
+        f"one-shot encode ({want.shape[1]} frames), bit for bit; "
+        f"{ec.launches_fwd} kernel launches")
+    del params
+
+    # times at the training shape (B=16) and at a 1 s encode (B=1)
+    t0 = time.monotonic()
+    out = {}
+    for B, M in ((16, M0), (1, cfg_all.data.sr // mc.enc_stride)):
+        h, w, dz = enc_inputs(torch.bfloat16, device, B, M, mc)
+        rows = [("encoder_fwd", lambda: ec.fwd_kernel(h, *w),
+                 lambda: ec.fwd_plain(h, *w), False)]
+        if B == 16:
+            rows.append(("encoder_bwd", lambda: ec.bwd_kernel(h, *w, dz),
+                         lambda: ec.bwd_plain(h, *w, dz), True))
+        for name, kern, plain, bwd in rows:
+            ms_, pms = cuda_ms(kern, reps=5), cuda_ms(plain, reps=1)
+            bms, bby = bound(*enc_work(B, M, C, d, L, bwd))
+            if B == 16:
+                out[name] = dict(ms=ms_, plain_ms=pms, bound_ms=bms,
+                                 bound_by=bby)
+            say("enc-kernel", t0, f"{name} bfloat16 B={B} h [{B}, {M}, {C}]:"
+                f" kernel {ms_:.3f} ms, plain {pms:.2f} ms, bound "
+                f"{bms * 1e3:.2f} us ({bby})")
+        del h, w, dz
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_cli(name, *args, timeout=600):
+    """One ``python3 -m vqvae_tpu_torch.cli.<name>`` run as a user runs
+    it: (its kernel launch counts, its stdout)."""
+    cmd = [sys.executable, "-m", f"vqvae_tpu_torch.cli.{name}", *args]
+    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                       timeout=timeout)
+    if r.returncode != 0:
+        print(r.stdout[-4000:], r.stderr[-4000:], flush=True)
+        fail(f"vqvae-torch-{name} exited with {r.returncode}: "
+             f"{' '.join(cmd[3:])}")
+    line = [ln for ln in r.stdout.splitlines()
+            if ln.startswith("kernel launches: ")]
+    check(len(line) == 1, f"vqvae-torch-{name} printed no launch counts")
+    return json.loads(line[0].split(": ", 1)[1]), r.stdout
+
+
+def cli_codec_phase(device):
+    """The codec CLIs on vctk-multi, as subprocesses; returns the launch
+    counts summed over them."""
+    import torch
+    from scipy.io import wavfile
+    from vqvae_tpu_torch.audio.mu_law import mu_law_round_trip
+    from vqvae_tpu_torch.audio.wav_io import load_wav
+    from vqvae_tpu_torch.cli.common import load_params
+    from vqvae_tpu_torch.configs import get_config
+    from vqvae_tpu_torch.infer.fastgen import encode_to_codes
+    from vqvae_tpu_torch.models.encoder import apply_encoder
+    cfg = get_config(PRESET)
+    sr, hop = cfg.data.sr, cfg.model.hop
+    t0 = time.monotonic()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_",
+                            dir=os.path.join(ROOT, "build"))
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        return counts
+
+    def p(*names):
+        return os.path.join(work, *names)
+    try:
+        tree = p("VCTK")
+        write_vctk_tree(tree)
+        counts, recs = train_vctk(tree, p("run"), 2, "--set",
+                                  "model.encoder_kernel=pallas")
+        add(counts)
+        check(counts["encoder_fwd"] > 0 and counts["encoder_bwd"] > 0,
+              f"training with the switch did not run the encoder kernels: "
+              f"{counts}")
+        say("cli-codec", t0, f"vqvae-torch-train --preset {PRESET} --dataset"
+            f" vctk --set model.encoder_kernel=pallas, 2 steps: exit 0; step "
+            f"1 loss1 {recs[0]['loss1']:.4f}; launches {counts}")
+
+        t0 = time.monotonic()
+        npz = p("exported.npz")
+        add(run_cli("export", "-m", p("run"), "-o", npz)[0])
+        with np.load(npz) as a, np.load(p("run", "weights.npz")) as b:
+            check(set(a.files) == set(b.files) and all(
+                np.array_equal(a[k], b[k]) for k in a.files),
+                "the exported .npz differs from the run's weights.npz")
+        n = 3 * sr
+        t = np.arange(n) / sr
+        x = 0.4 * np.sin(2 * np.pi * 180 * t) * (1 + 0.5 * np.sin(
+            2 * np.pi * 1.3 * t)) + 0.05 * np.random.default_rng(
+                6).standard_normal(n)
+        wav_in = p("in.wav")
+        wavfile.write(wav_in, sr, (np.clip(x, -1, 1) * 32767).astype(
+            np.int16))
+        base = ["--preset", PRESET, "-m", npz]
+        codes = {}
+        for kernel in ("xla", "pallas"):
+            out = p(f"codes_{kernel}.npy")
+            add(run_cli("encode", *base, "-i", wav_in, "-o", out, "--no-trim",
+                        "--set", f"model.encoder_kernel={kernel}")[0])
+            codes[kernel] = np.load(out)
+        # frames whose two best scores differ by more than 1e-4 of the
+        # largest must get the same code from both encoders
+        params = load_params(npz, cfg, device)
+        w = load_wav(wav_in, sr)
+        xw = mu_law_round_trip(torch.from_numpy(w[:n // hop * hop])[None],
+                               cfg.model.mu, cfg.model.mulaw_mode)
+        with torch.no_grad():
+            z = apply_encoder(params.encoder, cfg.model,
+                              xw.to(device)).double()[0]
+            check(np.array_equal(encode_to_codes(params, cfg.model, xw.to(
+                device))[0].cpu().numpy(), codes["xla"]),
+                "the encode CLI's codes differ from encode_to_codes")
+        cb = params.vq.codebook.double()
+        sc = 2 * z @ cb.T - (cb * cb).sum(-1)
+        top = sc.topk(2, -1).values
+        clear = ((top[:, 0] - top[:, 1]) > 1e-4 * float(sc.abs().max())
+                 ).cpu().numpy()
+        same = codes["xla"] == codes["pallas"]
+        check(bool(same[clear].all()), f"encode with the switch differs from "
+              f"without on {int((~same & clear).sum())} clear frames")
+        say("cli-codec", t0, f"export == the run's weights.npz; encode of a "
+            f"3 s wav: {len(codes['xla'])} frames, the switch's codes equal "
+            f"on all {int(clear.sum())} frames clear of the margin "
+            f"({int((~same).sum())} differ in all)")
+        del params
+
+        t0 = time.monotonic()
+        cpath = p("codes_pallas.npy")
+        outs = {}
+        for mode, extra in (("greedy", ["--greedy"]),
+                            ("sampled", ["--temperature", str(TEMP)])):
+            common = [*base, "-s", "3", "--seed", "7", *extra]
+            add(run_cli("decode", *common, "-i", cpath, "-o",
+                        p(f"dec_{mode}.wav"))[0])
+            c, out = run_cli("stream", *common, "-i", cpath, "-o",
+                             p(f"str_{mode}.wav"), "--chunk-frames", "16")
+            add(c)
+            a = wavfile.read(p(f"dec_{mode}.wav"))[1]
+            b = wavfile.read(p(f"str_{mode}.wav"))[1]
+            check(a.shape == (len(codes["pallas"]) * hop,) and
+                  np.array_equal(a, b), f"{mode}: stream != decode")
+            outs[mode] = a
+            pushes = [float(ln.split(" in ")[1].split(" ms")[0])
+                      for ln in out.splitlines() if ln.startswith("chunk ")]
+        add(run_cli("decode", *base, "-s", "3", "--seed", "7",
+                    "--temperature", str(TEMP), "-i", cpath, "-o",
+                    p("low.wav"), "--gen-impl", "lowmem")[0])
+        check(np.array_equal(wavfile.read(p("low.wav"))[1], outs["sampled"]),
+              "--gen-impl lowmem != one-shot decode")
+        say("cli-codec", t0, f"decode == stream ({len(pushes)} pushes of 16 "
+            f"frames, median {sorted(pushes)[len(pushes) // 2]:.1f} ms a "
+            f"push), greedy and sampled; lowmem == one-shot (sampled); "
+            f"bit for bit")
+
+        t0 = time.monotonic()
+        one_s = p("one_s.wav")
+        wavfile.write(one_s, sr, (np.clip(x[:sr], -1, 1) * 32767).astype(
+            np.int16))
+        add(run_cli("generate", *base, "-i", one_s, "-o", p("gen.wav"),
+                    "-s", "3", "--no-trim", "--set",
+                    "model.encoder_kernel=pallas")[0])
+        g = wavfile.read(p("gen.wav"))[1]
+        check(g.shape == (sr // hop * hop,), f"generate: length {g.shape}")
+        c, out = run_cli("score", "-m", p("run"), "--dataset", "vctk",
+                         "--root", tree, "--json")
+        add(c)
+        rec = json.loads([ln for ln in out.splitlines()
+                          if ln.startswith("{")][-1])
+        check(np.isfinite(rec["val_loss1"]), f"score: {rec}")
+        check(all(total[k] > 0 for k in ("encoder_fwd", "encoder_bwd",
+                                         "decode")),
+              f"a kernel of the codec path was not launched: {total}")
+        say("cli-codec", t0, f"generate (1 s, the switch on) exit 0; score "
+            f"{rec['split']} split of the synthetic tree: {rec['windows']} "
+            f"windows, val_loss1 {rec['val_loss1']}; launches over the CLI "
+            f"runs {total}")
+        return total
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main():
     t0 = time.monotonic()
     smi = nvidia_smi()
@@ -1207,7 +1544,8 @@ def main():
     sources = {"vqvae_decode": "decode.cu",
                "vqvae_wavenet_train": "wavenet_train.cu",
                "vqvae_head_ce": "head_ce.cu",
-               "vqvae_vq": "vq.cu"}
+               "vqvae_vq": "vq.cu",
+               "vqvae_encoder": "encoder.cu"}
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         # one nvcc per source, all started together
         for f in [pool.submit(build.build, k, [v])
@@ -1228,12 +1566,12 @@ def main():
 
     cfg_all = get_config(PRESET)
     flag = cfg_all.model
-    worst = kernel_phase(dc, flag, device)
+    worst, _ = kernel_phase(dc, flag, device)
     resume_phase(dc, flag, device)
     launched = serve_phase(flag, cfg_all, device, dc)
-    ms, plain_ms, err = request_phase(dc, flag, device, cfg_all.data.sr)
-    T_req = cfg_all.data.sr // flag.hop * flag.hop
-    bms, bby = decode_bound(flag, 1, T_req)
+    ms, plain_ms, T_req, err = request_phase(dc, flag, device,
+                                             cfg_all.data.sr)
+    bms, bby = bound(*decode_work(flag, 1, T_req))
     kernels = [{
         "name": "decode",
         "route": "cuda",
@@ -1258,6 +1596,10 @@ def main():
     counts.update({k: vctk_counts[k] for k in ("chunk_bwd_rec",
                                                  "vq_argmin")})
     counts["chunk_bwd_win"] = win_counts["chunk_bwd_win"]
+    timing.update(enc_kernel_phase(device, errs))
+    codec_counts = cli_codec_phase(device)
+    counts.update({k: codec_counts[k] for k in ("encoder_fwd",
+                                                 "encoder_bwd")})
     for name, src, replaces in (
             ("chunk_fwd", "wavenet_train.cu",
              "vqvae_tpu/kernels/wavenet_train_pallas.py:586"),
@@ -1271,7 +1613,11 @@ def main():
              "vqvae_tpu/kernels/head_ce_pallas.py:170"),
             ("head_ce_bwd", "head_ce.cu",
              "vqvae_tpu/kernels/head_ce_pallas.py:201"),
-            ("vq_argmin", "vq.cu", "vqvae_tpu/kernels/vq_pallas.py:58")):
+            ("vq_argmin", "vq.cu", "vqvae_tpu/kernels/vq_pallas.py:58"),
+            ("encoder_fwd", "encoder.cu",
+             "vqvae_tpu/kernels/encoder_pallas.py:204"),
+            ("encoder_bwd", "encoder.cu",
+             "vqvae_tpu/kernels/encoder_pallas.py:240")):
         kernels.append({"name": name, "route": "cuda",
                         "source": f"vqvae_tpu_torch/csrc/{src}",
                         "replaces": replaces, "launches": counts[name],

@@ -257,3 +257,65 @@ def test_vq_kernel_vs_plain(cuda, N):
     far = (top[:, 0] - top[:, 1]) > 1e-4 * float(s.abs().max())
     want = vq_cuda.vq_argmin_plain(z, cb)
     assert bool((got == want)[far].all())
+
+
+# ---- the fused encoder (csrc/encoder.cu) ----------------------------------
+
+from vqvae_tpu_torch.kernels import encoder_cuda as ec          # noqa: E402
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_encoder_kernels_vs_plain(cuda, cdt):
+    """The fused encoder's forward and recompute backward at vctk-multi
+    widths (C=128, d=64, 5 layers, non-zero biases): z and every
+    gradient within 1e-4 (float32) / 3e-2 (bfloat16) of its max."""
+    g = torch.Generator().manual_seed(0)
+    B, M0, C, d, L = 2, 1024, 128, 64, 5
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g) * scale
+    h = torch.relu(rn(B, M0, C)).to(cuda, cdt)
+    w = [t.to(cuda) for t in (rn(L, 4, C, C, scale=(4 * C) ** -0.5),
+                              rn(L, C, scale=0.3), rn(C, d, scale=C ** -0.5),
+                              rn(d, scale=0.3))]
+    dz = rn(B, M0 >> L, d).to(cuda)
+    before = (ec.launches_fwd, ec.launches_bwd)
+    z = ec.encoder_stack_forward(h, *w)
+    grads = ec.encoder_stack_backward(h, *w, dz)
+    assert (ec.launches_fwd, ec.launches_bwd) == (before[0] + 1,
+                                                  before[1] + 1)
+    assert grads[0].dtype == cdt and z.dtype == torch.float32
+    assert _rel_err(z, ec.fwd_plain(h, *w)) <= TRAIN_TOL[cdt]
+    for a, b in zip(grads, ec.bwd_plain(h, *w, dz)):
+        assert _rel_err(a, b) <= TRAIN_TOL[cdt]
+
+
+def test_streaming_encoder_with_the_kernel_equals_one_shot(cuda):
+    """``encoder_kernel="pallas"`` on the card: the streaming encoder's
+    windows give the one-shot codes bit for bit (each output row sums in
+    one fixed order, whatever the window)."""
+    import numpy as np
+    from vqvae_tpu_torch.audio.mu_law import mu_law_round_trip
+    from vqvae_tpu_torch.infer.enc_streaming import StreamingEncoder
+    from vqvae_tpu_torch.infer.fastgen import encode_to_codes
+    cfg = dataclasses.replace(get_config("vctk-multi").model,
+                              encoder_kernel="pallas")
+    params = init_model(cfg, torch.Generator().manual_seed(1), cuda)
+    with torch.no_grad():
+        for k, v in params.encoder.state_dict().items():
+            if k.endswith(".b"):
+                v.copy_(torch.randn(v.shape) * 0.3)
+    rng = np.random.default_rng(0)
+    wav = (0.3 * rng.standard_normal((1, 40 * cfg.hop + 9))).astype(
+        np.float32)
+    T = wav.shape[1] // cfg.hop * cfg.hop
+    with torch.no_grad():
+        want = encode_to_codes(params, cfg, mu_law_round_trip(
+            torch.from_numpy(wav[:, :T]), cfg.mu, cfg.mulaw_mode).to(
+                cuda)).cpu().numpy()
+    for width in (700, 4096):
+        enc = StreamingEncoder(params, cfg)
+        pieces = [enc.push(wav[:, i:i + width])
+                  for i in range(0, wav.shape[1], width)]
+        pieces.append(enc.flush())
+        np.testing.assert_array_equal(np.concatenate(pieces, 1), want)

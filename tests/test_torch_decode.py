@@ -246,3 +246,30 @@ def test_synthesize_is_encode_then_decode():
     want = decode_from_codes(params, cfg, codes, torch.tensor([2]), seed=4)
     assert out.shape == (1, 3 * cfg.hop) and torch.equal(out, want)
     assert float(out.abs().max()) <= 1.0
+
+
+@pytest.mark.parametrize("greedy", [True, False], ids=["greedy", "sampled"])
+def test_streaming_synthesizer_any_split_equals_one_shot(greedy):
+    """Pushes of any width (0 and 1 frame included), then ``flush``,
+    give one-shot ``decode_from_codes``'s waveform bit for bit; so does
+    the ``lowmem`` decode, at a chunk that does not divide the stream."""
+    from vqvae_tpu_torch.infer.fastgen import decode_from_codes
+    from vqvae_tpu_torch.infer.streaming import StreamingSynthesizer
+    cfg = get_config("tiny").model
+    _, params, _, _, _ = _setup(jax_config("tiny").model, 1, 1)
+    codes = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.K, (2, 11)))
+    spk = torch.tensor([1, 3])
+    one = decode_from_codes(params, cfg, codes, spk, 6, 0.8, greedy)
+    syn = StreamingSynthesizer(params, cfg, spk, 6, 0.8, greedy)
+    pieces, i = [], 0
+    for w in (3, 0, 1, 7):
+        pieces.append(syn.push(codes[:, i:i + w]))
+        i += w
+    pieces.append(syn.flush())
+    assert pieces[0].shape == (2, 3 * cfg.hop - cfg.hop // 2)
+    assert torch.equal(torch.cat(pieces, 1), one)
+    from vqvae_tpu_torch.infer.lowmem import decode_from_codes_lowmem
+    low = decode_from_codes_lowmem(params, cfg, codes, spk, 6, 0.8, greedy,
+                                   chunk_samples=4 * cfg.hop)
+    assert torch.equal(low, one)

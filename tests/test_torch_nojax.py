@@ -20,6 +20,12 @@ def test_port_imports_without_jax():
         "import vqvae_tpu_torch.audio.wav_io, vqvae_tpu_torch.audio.datasets\n"
         "import vqvae_tpu_torch.train.evaluator\n"
         "import vqvae_tpu_torch.train.checkpoint\n"
+        "import vqvae_tpu_torch.kernels.encoder_cuda\n"
+        "import vqvae_tpu_torch.infer, vqvae_tpu_torch.infer.lowmem\n"
+        "import vqvae_tpu_torch.infer.streaming\n"
+        "import vqvae_tpu_torch.cli.encode, vqvae_tpu_torch.cli.decode\n"
+        "import vqvae_tpu_torch.cli.generate, vqvae_tpu_torch.cli.stream\n"
+        "import vqvae_tpu_torch.cli.score, vqvae_tpu_torch.cli.export\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'vqvae_tpu'))\n"
         "print(bad)\n"

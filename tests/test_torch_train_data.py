@@ -96,6 +96,7 @@ def test_train_cli_on_cpu_writes_log_config_and_weights(tmp_path):
     line = [ln for ln in r.stdout.splitlines()
             if ln.startswith("kernel launches: ")]
     assert json.loads(line[0].split(": ", 1)[1]) == {
+        "decode": 0, "encoder_fwd": 0, "encoder_bwd": 0,
         "chunk_fwd": 0, "chunk_bwd": 0, "chunk_bwd_rec": 0,
         "chunk_bwd_win": 0, "head_ce_fwd": 0, "head_ce_bwd": 0,
         "vq_argmin": 0}

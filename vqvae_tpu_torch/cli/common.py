@@ -5,11 +5,16 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 
 from vqvae_tpu_torch.configs import Config, get_config, load_config
 from vqvae_tpu_torch.models import init_model
-from vqvae_tpu_torch.train.checkpoint import load_weights_npz
+from vqvae_tpu_torch.train.checkpoint import (
+    latest_step,
+    load_checkpoint_params,
+    load_weights_npz,
+)
 
 
 def add_config_args(p: argparse.ArgumentParser) -> None:
@@ -87,17 +92,30 @@ def resolve_config(args) -> Config:
     return cfg
 
 
+def checkpoint_dir(model_path: str) -> str:
+    """Accept either a run's out_dir or its checkpoints/ subdir."""
+    sub = os.path.join(model_path, "checkpoints")
+    return sub if os.path.isdir(sub) else model_path
+
+
 def load_params(model_path: str, cfg: Config, device="cpu"):
     """Weights from a weights-only ``.npz`` (``export_weights`` of
-    either package).  Training run directories hold orbax checkpoints,
-    which need JAX: convert them once with ``vqvae-export``."""
-    if not model_path.endswith(".npz"):
+    either package), or from a port training run directory (its newest
+    ``checkpoints/step_N.pt``).  JAX run directories hold orbax
+    checkpoints, which need JAX: convert them once with
+    ``vqvae-export``."""
+    template = init_model(cfg.model, device="meta")
+    if model_path.endswith(".npz"):
+        params = load_weights_npz(model_path, template, device)
+        print(f"loaded weights-only snapshot {model_path}")
+        return params
+    ckpt = checkpoint_dir(model_path)
+    if latest_step(ckpt) is None:
         raise SystemExit(
             f"{model_path}: the port loads weights-only .npz files; "
             "export with `vqvae-export` first")
-    template = init_model(cfg.model, device="meta")
-    params = load_weights_npz(model_path, template, device)
-    print(f"loaded weights-only snapshot {model_path}")
+    params, step = load_checkpoint_params(ckpt, template, device)
+    print(f"restored step {step} from {ckpt}")
     return params
 
 
@@ -133,6 +151,12 @@ def make_dataset(cfg: Config, kind: str, root: str | None = None):
     return WavDataset(tp, ti, cfg.data), valid
 
 
+def add_device_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; fails without a GPU; "
+                        "cpu runs the kernels' plain versions)")
+
+
 def resolve_device(device: str):
     """The run's device; a CUDA device without a GPU is an error (the
     port never moves to the CPU by itself)."""
@@ -142,3 +166,57 @@ def resolve_device(device: str):
         raise RuntimeError(f"--device {device}: no CUDA device is available "
                            "(use --device cpu to run on the CPU)")
     return dev
+
+
+def output_names(paths, suffix: str) -> list[str]:
+    """``<stem><suffix>`` per input path, de-duplicated across
+    directories (a/x.wav and b/x.wav must not overwrite each other)."""
+    names, seen = [], set()
+    for i, path in enumerate(paths):
+        stem = os.path.splitext(os.path.basename(path))[0]
+        name = f"{stem}{suffix}"
+        if name in seen:
+            name = f"{stem}_{i}{suffix}"
+        seen.add(name)
+        names.append(name)
+    return names
+
+
+def speaker_ids(ids, B: int, cfg: Config, device):
+    """``[B]`` speaker ids from ``-s``: one per row, or one broadcast to
+    every row; checked against the speaker table on the host (an
+    out-of-range gather on the card poisons the CUDA context)."""
+    import torch
+    ids = list(ids) if len(ids) > 1 else list(ids) * B
+    if len(ids) != B:
+        raise SystemExit(f"got {len(ids)} speaker ids for {B} rows")
+    n = max(cfg.model.n_speakers, 1)
+    if any(not 0 <= i < n for i in ids):
+        raise SystemExit(f"speaker ids must be in [0, {n}), got {ids}")
+    return torch.tensor(ids, dtype=torch.long, device=device)
+
+
+def launch_counts() -> dict:
+    """Kernel launches in this process, by kernel."""
+    from vqvae_tpu_torch.kernels import (
+        decode_cuda,
+        encoder_cuda,
+        head_ce_cuda,
+        vq_cuda,
+    )
+    from vqvae_tpu_torch.kernels import wavenet_train_cuda as wt
+    return {"decode": decode_cuda.launches,
+            "encoder_fwd": encoder_cuda.launches_fwd,
+            "encoder_bwd": encoder_cuda.launches_bwd,
+            "chunk_fwd": wt.launches_fwd,
+            "chunk_bwd": wt.launches_bwd,
+            "chunk_bwd_rec": wt.launches_bwd_rec,
+            "chunk_bwd_win": wt.launches_bwd_win,
+            "head_ce_fwd": head_ce_cuda.launches_fwd,
+            "head_ce_bwd": head_ce_cuda.launches_bwd,
+            "vq_argmin": vq_cuda.launches}
+
+
+def print_launch_counts() -> None:
+    """The last line a CLI prints: its process's kernel launches."""
+    print("kernel launches: " + json.dumps(launch_counts()), flush=True)

@@ -50,8 +50,8 @@ from collections import deque
 import numpy as np
 import torch
 
-from vqvae_tpu_torch.cli.common import add_config_args, load_params, \
-    resolve_config, resolve_device
+from vqvae_tpu_torch.cli.common import add_config_args, add_device_arg, \
+    load_params, resolve_config, resolve_device
 from vqvae_tpu_torch.infer.enc_streaming import StreamingEncoder
 from vqvae_tpu_torch.infer.kernel_stream import KernelStreamDecoder
 from vqvae_tpu_torch.kernels import decode_cuda
@@ -555,15 +555,13 @@ def main() -> None:
     add_config_args(p)
     p.add_argument("-m", "--model", required=True,
                    help="weights-only .npz (export_weights of either "
-                        "package)")
+                        "package) or a port training run dir")
     p.add_argument("--socket", help="UNIX socket path to listen on")
     p.add_argument("--tcp", metavar="HOST:PORT",
                    help="listen on TCP instead of a UNIX socket")
     p.add_argument("--http", metavar="HOST:PORT",
                    help="serve the same ops over HTTP/1.1 instead")
-    p.add_argument("--device", default="cuda",
-                   help="torch device to serve on (default cuda; fails "
-                        "without a GPU)")
+    add_device_arg(p)
     p.add_argument("--chunk", type=int, default=16,
                    help="code frames of the realtime probes: a "
                         "2*chunk+1-frame request and chunk-frame session "

@@ -9,8 +9,8 @@ trains on one device and writes ``<out>/config.json``,
 ``<out>/checkpoints/`` (the whole train state, for ``--resume``) and
 ``<out>/weights.npz`` (which ``vqvae-torch-serve -m`` loads).
 ``--device cuda`` (the default) fails without a GPU; ``--device cpu``
-runs the kernels' plain versions.  At exit it prints the training
-kernels' launch counts as one JSON line.  ``--decoder-kernel`` picks
+runs the kernels' plain versions.  At exit it prints the kernels'
+launch counts as one JSON line.  ``--decoder-kernel`` picks
 the decoder stack (``pallas`` recompute, ``pallas_sg`` saved gates,
 ``xla`` the plain layer loop), ``--impl`` the VQ search; any other
 field goes through ``--set``.  Not ported yet: the mesh flags (ROADMAP
@@ -21,27 +21,15 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import json
 
 from vqvae_tpu_torch.cli.common import (
     add_config_args,
+    add_device_arg,
     make_dataset,
+    print_launch_counts,
     resolve_config,
     resolve_device,
 )
-
-
-def launch_counts() -> dict:
-    """Kernel launches of the training kernels in this process."""
-    from vqvae_tpu_torch.kernels import head_ce_cuda, vq_cuda
-    from vqvae_tpu_torch.kernels import wavenet_train_cuda as wt
-    return {"chunk_fwd": wt.launches_fwd,
-            "chunk_bwd": wt.launches_bwd,
-            "chunk_bwd_rec": wt.launches_bwd_rec,
-            "chunk_bwd_win": wt.launches_bwd_win,
-            "head_ce_fwd": head_ce_cuda.launches_fwd,
-            "head_ce_bwd": head_ce_cuda.launches_bwd,
-            "vq_argmin": vq_cuda.launches}
 
 
 def main(argv=None) -> None:
@@ -70,8 +58,7 @@ def main(argv=None) -> None:
                    help="host input pipeline (worker threads)")
     p.add_argument("--eval-every", type=int, default=None,
                    help="validation interval in steps (0: off)")
-    p.add_argument("--device", default="cuda",
-                   help="cuda (default; fails without a GPU) or cpu")
+    add_device_arg(p)
     args = p.parse_args(argv)
 
     cfg = resolve_config(args)
@@ -94,7 +81,7 @@ def main(argv=None) -> None:
     from vqvae_tpu_torch.train.loop import train
     train(cfg, dataset, out_dir=cfg.train.out_dir, device=device,
           resume=args.resume, impl=args.impl, valid_dataset=valid)
-    print("kernel launches: " + json.dumps(launch_counts()), flush=True)
+    print_launch_counts()
 
 
 if __name__ == "__main__":

@@ -46,8 +46,8 @@ class ModelConfig:
     time-windowed with ``bwd_time_windows > 1``) or ``pallas_sg`` (the
     CUDA chunk kernels with saved gates); ``head_kernel`` ``xla`` or
     ``pallas`` (the CUDA head+CE kernels); ``embed_in_kernel``;
-    ``remat``.  ``encoder_kernel`` is carried so configs round-trip and
-    raises for anything but ``xla`` (ROADMAP B11)."""
+    ``remat``; ``encoder_kernel`` ``xla`` (plain layer loop) or
+    ``pallas`` (the CUDA encoder kernels after the first layer)."""
 
     mu: int = 256
     mulaw_mode: str = "round"

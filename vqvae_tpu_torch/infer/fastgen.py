@@ -50,12 +50,21 @@ def encode_to_codes(params, cfg: ModelConfig, wav: torch.Tensor
     return encode(params, cfg, wav)
 
 
+IMPLS = ("lax", "pallas", "lowmem")
+
+
 def decode_from_codes(params, cfg: ModelConfig, codes: torch.Tensor,
                       speaker: torch.Tensor, seed: int = 0,
-                      temperature: float = 1.0, greedy: bool = False
-                      ) -> torch.Tensor:
+                      temperature: float = 1.0, greedy: bool = False,
+                      impl: str = "lax") -> torch.Tensor:
     """Code ids ``[B, T_lat]`` -> float32 waveform ``[B, T_lat*hop]``.
     Ids must already be validated (``[0, K)``)."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown decode impl {impl!r} ({', '.join(IMPLS)})")
+    if impl == "lowmem":
+        from vqvae_tpu_torch.infer.lowmem import decode_from_codes_lowmem
+        return decode_from_codes_lowmem(params, cfg, codes, speaker, seed,
+                                        temperature, greedy)
     cond = CondUpsampler(params, cfg)(codes)
     ids = generate_ids(params, cfg, cond, speaker, seed, temperature,
                        greedy)
@@ -64,13 +73,13 @@ def decode_from_codes(params, cfg: ModelConfig, codes: torch.Tensor,
 
 def synthesize(params, cfg: ModelConfig, wav: torch.Tensor,
                speaker: torch.Tensor, seed: int = 0,
-               temperature: float = 1.0, greedy: bool = False
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+               temperature: float = 1.0, greedy: bool = False,
+               impl: str = "lax") -> Tuple[torch.Tensor, torch.Tensor]:
     """waveform -> codes -> waveform.  Returns (wav ``[B, T']``, codes
     ``[B, T'/hop]``), T' = T rounded down to a multiple of the hop."""
     T = wav.shape[1] - (wav.shape[1] % cfg.hop)
     wav = mu_law_round_trip(wav[:, :T], cfg.mu, cfg.mulaw_mode)
     codes = encode_to_codes(params, cfg, wav)
     out = decode_from_codes(params, cfg, codes, speaker, seed, temperature,
-                            greedy)
+                            greedy, impl)
     return out, codes

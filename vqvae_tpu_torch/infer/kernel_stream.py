@@ -24,7 +24,10 @@ import torch
 
 from vqvae_tpu_torch.audio.mu_law import mu_law_decode
 from vqvae_tpu_torch.configs import ModelConfig
-from vqvae_tpu_torch.infer.streaming import CondUpsampler
+from vqvae_tpu_torch.infer.streaming import (
+    CondUpsampler,
+    StreamingSynthesizer,
+)
 from vqvae_tpu_torch.kernels import decode_cuda
 from vqvae_tpu_torch.models.wavenet import global_cond, make_gen_params
 
@@ -94,26 +97,18 @@ class KernelStreamDecoder:
 class KernelStreamSession:
     """Incremental decode: ``push`` code frames of any size as they
     arrive and get the waveform each push finalizes; ``close`` flushes
-    the tail.  Holds only its decode state and the upsampler carry."""
+    the tail.  A ``StreamingSynthesizer`` on the decoder's packed
+    weights, with host-side id validation and numpy in and out."""
 
     def __init__(self, dec: KernelStreamDecoder, speaker, seed: int = 0,
                  temperature: float = 1.0, greedy: bool = False):
         self.dec = dec
-        self.gcond = dec._prep(speaker)
-        self.seed, self.temperature, self.greedy = seed, temperature, greedy
-        self.state = decode_cuda.init_decode_state(
-            dec.cfg, self.gcond.shape[1], dec.gp.wff.dtype, dec.device)
         # a private stream on the shared table: the decoder's own
         # upsampler is reset per request
-        self._ups = dec._ups.fork()
+        self._syn = StreamingSynthesizer.from_parts(
+            dec.cfg, dec.gp, dec._prep(speaker), dec._ups.fork(), seed,
+            temperature, greedy)
         self._closed = False
-
-    def _decode(self, cond) -> np.ndarray:
-        with torch.no_grad():
-            wav, self.state = self.dec._run(cond, self.gcond, self.seed,
-                                            self.temperature, self.greedy,
-                                            self.state)
-        return wav.cpu().numpy()
 
     def push(self, codes: np.ndarray) -> np.ndarray:
         """codes ``[B, n]`` -> the newly finalized ``[B, m]`` waveform
@@ -121,16 +116,12 @@ class KernelStreamSession:
         if self._closed:
             raise ValueError("session is closed")
         codes = _check_codes(codes, self.dec.cfg.K)
-        with torch.no_grad():
-            cond = self._ups.push(torch.from_numpy(codes).to(self.dec.device))
-        return self._decode(cond)
+        return self._syn.push(torch.from_numpy(codes).to(
+            self.dec.device)).cpu().numpy()
 
     def close(self) -> np.ndarray:
         """Flush the upsampler tail; the session is then unusable."""
         if self._closed:
             raise ValueError("session is closed")
         self._closed = True
-        B = self.gcond.shape[1]
-        if not self._ups.started:      # flush needs at least one push
-            return np.zeros((B, 0), np.float32)
-        return self._decode(self._ups.flush())
+        return self._syn.flush().cpu().numpy()

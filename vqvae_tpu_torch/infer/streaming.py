@@ -1,5 +1,6 @@
-"""Chunked local-condition upsampling (port of
-``vqvae_tpu/infer/streaming.py::CondUpsampler``).
+"""Chunked local-condition upsampling and streaming synthesis (port of
+``vqvae_tpu/infer/streaming.py``: ``CondUpsampler``,
+``StreamingSynthesizer``).
 
 The upsampler is a stride-``hop`` transposed conv with a ``2*hop``-tap
 kernel: the VALID output is ``v[p*hop + r] += e[p] @ wf[r]`` (``wf``
@@ -14,13 +15,23 @@ would not give that: oneDNN and cuBLAS choose their blocking by shape,
 so the condition samples, and the decode after them, would depend on
 how a stream was cut.  So chunked output equals the one-shot output
 bit for bit.
+
+``StreamingSynthesizer`` feeds that condition to resumable decode
+kernel calls (``kernels/decode_cuda.generate_ids_resume``), whose noise
+is indexed by absolute step, so any split of a stream into pushes gives
+the waveform of one-shot ``infer/fastgen.decode_from_codes``, greedy
+and sampled.  What it holds is the decode state and the upsampler's
+one-hop carry, whatever the stream's length.
 """
 
 from __future__ import annotations
 
 import torch
 
+from vqvae_tpu_torch.audio.mu_law import mu_law_decode
 from vqvae_tpu_torch.configs import ModelConfig
+from vqvae_tpu_torch.kernels import decode_cuda
+from vqvae_tpu_torch.models.wavenet import global_cond, make_gen_params
 from vqvae_tpu_torch.ops.conv import matmul
 
 
@@ -97,3 +108,67 @@ class CondUpsampler:
         out = torch.cat([self.push(codes), self.flush()], dim=1)
         self.reset()
         return out
+
+
+class StreamingSynthesizer:
+    """Push VQ code frames, pull waveform.
+
+    >>> s = StreamingSynthesizer(params, cfg, speaker, seed)
+    >>> pieces = [s.push(codes_chunk) for codes_chunk in chunks]
+    >>> pieces.append(s.flush())
+
+    ``speaker`` is ``[B]`` on the parameters' device; codes must be
+    valid ids (``[0, K)``).  Each push returns the float32 waveform
+    ``[B, m]`` it finalized (``n*hop`` samples for n frames, ``hop//2``
+    fewer on the first push); ``flush`` the last ``hop - hop//2``."""
+
+    def __init__(self, params, cfg: ModelConfig, speaker: torch.Tensor,
+                 seed: int = 0, temperature: float = 1.0,
+                 greedy: bool = False):
+        dec = params["decoder"]
+        with torch.no_grad():
+            self._setup(cfg, make_gen_params(dec, cfg),
+                        global_cond(dec, cfg, speaker),
+                        CondUpsampler(params, cfg), seed, temperature,
+                        greedy)
+
+    @classmethod
+    def from_parts(cls, cfg: ModelConfig, gp, gcond: torch.Tensor,
+                   upsampler: CondUpsampler, seed: int = 0,
+                   temperature: float = 1.0, greedy: bool = False
+                   ) -> "StreamingSynthesizer":
+        """A stream on weights packed once elsewhere (the serving
+        decoder's): ``gp``, ``gcond`` ``[L, B, 2R]`` and a fresh
+        upsampler stream."""
+        syn = cls.__new__(cls)
+        syn._setup(cfg, gp, gcond, upsampler, seed, temperature, greedy)
+        return syn
+
+    def _setup(self, cfg, gp, gcond, upsampler, seed, temperature, greedy):
+        self.cfg, self.gp, self.gcond, self._ups = cfg, gp, gcond, upsampler
+        self.seed, self.temperature, self.greedy = seed, temperature, greedy
+        self.state = decode_cuda.init_decode_state(
+            cfg, gcond.shape[1], gp.wff.dtype, gcond.device)
+
+    def _decode(self, cond: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            ids, self.state = decode_cuda.generate_ids_resume(
+                self.gp, self.cfg, cond, self.gcond, self.seed,
+                self.temperature, self.state, self.greedy)
+        return mu_law_decode(ids, self.cfg.mu, mode=self.cfg.mulaw_mode)
+
+    def push(self, codes: torch.Tensor) -> torch.Tensor:
+        """codes ``[B, n]`` -> the waveform this push finalized."""
+        with torch.no_grad():
+            cond = self._ups.push(codes)
+        return self._decode(cond)
+
+    def flush(self) -> torch.Tensor:
+        """The final ``hop - hop//2`` samples (the SAME-crop tail); empty
+        when nothing was pushed."""
+        if not self._ups.started:
+            return torch.zeros((self.gcond.shape[1], 0),
+                               device=self.gcond.device)
+        with torch.no_grad():
+            cond = self._ups.flush()
+        return self._decode(cond)

@@ -1,6 +1,8 @@
-"""Strided-conv encoder (port of ``vqvae_tpu/models/encoder.py``, the
-``encoder_kernel="xla"`` path): stride-2 kernel-4 SAME convs with ReLU,
-then a 1x1 projection to the latent dim ``d``."""
+"""Strided-conv encoder (port of ``vqvae_tpu/models/encoder.py``):
+stride-2 kernel-4 SAME convs with ReLU, then a 1x1 projection to the
+latent dim ``d``.  ``encoder_kernel="pallas"`` runs layers 2..L and the
+projection through the fused encoder kernel
+(``kernels/encoder_cuda.py``)."""
 
 from __future__ import annotations
 
@@ -30,10 +32,12 @@ def init_encoder(cfg: ModelConfig, generator=None, device="cpu") -> Dict:
 def apply_encoder(params, cfg: ModelConfig, wav: torch.Tensor
                   ) -> torch.Tensor:
     """``[B, T]`` waveform -> z_e ``[B, T/hop, d]`` in float32."""
+    if cfg.encoder_kernel == "pallas":
+        from vqvae_tpu_torch.kernels.encoder_cuda import encoder_fused
+        return encoder_fused(params, cfg, wav)
     if cfg.encoder_kernel != "xla":
-        raise NotImplementedError(
-            f"encoder_kernel={cfg.encoder_kernel!r} (the fused encoder) is "
-            "not ported yet (ROADMAP B11); use 'xla'")
+        raise ValueError(f"unknown encoder_kernel {cfg.encoder_kernel!r} "
+                         "(xla or pallas)")
     cdt = cfg.cdtype
     x = wav[..., None].to(cdt)
     for layer in params["layers"]:

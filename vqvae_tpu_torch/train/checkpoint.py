@@ -90,18 +90,39 @@ def export_weights(path: str, params: torch.nn.Module) -> None:
     np.savez(path, **to_numpy_tree(params))
 
 
+def _tree_like(arrays, template: torch.nn.Module, device, source: str
+               ) -> ParamTree:
+    """``arrays`` (``key -> array``) in the structure, shapes and dtypes
+    of ``template`` (a ``meta``-device template allocates nothing)."""
+    flat = {}
+    for key, t in flat_state(template).items():
+        if key not in arrays:
+            raise ValueError(f"missing weight {key} in {source}")
+        a = torch.as_tensor(arrays[key])
+        if tuple(a.shape) != tuple(t.shape):
+            raise ValueError(f"{key}: shape {tuple(a.shape)} in {source}, "
+                             f"model wants {tuple(t.shape)}")
+        flat[key] = a.to(device=device, dtype=t.dtype)
+    return ParamTree(nest(flat))
+
+
 def load_weights_npz(path: str, template: torch.nn.Module,
                      device="cpu") -> ParamTree:
-    """Load a weights-only .npz in the structure, shapes and dtypes of
-    ``template`` (a ``meta``-device template allocates nothing)."""
+    """Load a weights-only .npz in the structure of ``template``."""
     with np.load(path) as z:
-        flat = {}
-        for key, t in flat_state(template).items():
-            if key not in z.files:
-                raise ValueError(f"missing weight {key} in {path}")
-            a = z[key]
-            if tuple(a.shape) != tuple(t.shape):
-                raise ValueError(f"{key}: shape {a.shape} in {path}, "
-                                 f"model wants {tuple(t.shape)}")
-            flat[key] = torch.from_numpy(a).to(device=device, dtype=t.dtype)
-    return ParamTree(nest(flat))
+        return _tree_like({k: z[k] for k in z.files}, template, device, path)
+
+
+def load_checkpoint_params(directory: str, template: torch.nn.Module,
+                           device="cpu", step: int | None = None
+                           ) -> tuple[ParamTree, int]:
+    """(parameters, step) of a train-state checkpoint (the newest by
+    default) in the structure of ``template``; the optimizer and EMA
+    state are not read."""
+    step = latest_step(directory) if step is None else step
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint under {directory}")
+    ck = torch.load(_path(directory, step), map_location="cpu",
+                    weights_only=True)
+    return _tree_like(ck["params"], template, device,
+                      _path(directory, step)), step
