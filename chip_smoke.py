@@ -10,7 +10,7 @@ nonzero:
 
 1. device  — the card's name and power limit (nvidia-smi); CUDA must be
              available; TF32 off for the plain references.
-2. build   — compile the port's five CUDA sources
+2. build   — compile the port's seven CUDA sources
              (``vqvae_tpu_torch/csrc/*.cu``), one nvcc each, side by side.
 3. kernel  — the decode kernel against its plain PyTorch version at
              vctk-multi width (seeded random weights), B in {1, 3},
@@ -22,11 +22,12 @@ nonzero:
              bound.
 4. resume  — resumed kernel pushes equal one kernel call, bit for bit.
 5. serve   — the daemon (``python3 -m vqvae_tpu_torch.cli.serve``) on
-             the exported seeded weights, driven over its UNIX socket:
-             ping, encode, decode (greedy, sampled), reconstruct,
-             codes-mode sessions (equal to one-shot decode, greedy and
-             sampled), a pcm-mode session (equal to reconstruct), stats,
-             shutdown.  The daemon's kernel launch
+             the exported seeded weights, driven over its UNIX socket by
+             the port's own client (``vqvae_tpu_torch.client``): ping,
+             encode, decode (greedy, sampled), reconstruct, codes-mode
+             sessions (equal to one-shot decode, greedy and sampled), a
+             pcm-mode session (equal to reconstruct), an out-of-range id
+             (refused), stats, shutdown.  The daemon's kernel launch
              count must rise across the requests.
 6. request — one 1 s decode request as the daemon makes it (B=1, bf16,
              one kernel call over 16000 steps): its kernel time; the kernel
@@ -49,8 +50,10 @@ nonzero:
              scores differ by more than 1e-4 of the largest score; the rows
              left out are counted.
 8. train-cli — ``python3 -m vqvae_tpu_torch.cli.train --preset stretch
-             --dataset sine --steps 3`` as a subprocess (B=64, T=7680,
-             bf16): exits 0, finite losses in log.jsonl, weights.npz loads
+             --dataset sine --steps 3 --profile 2`` as a subprocess (B=64,
+             T=7680, bf16): exits 0, finite losses in log.jsonl, one
+             torch.profiler trace under <out>/profile holding the card's
+             kernels, weights.npz loads
              through ``cli/common.py::load_params``, and the launch counts
              it prints show the kernels of its path launched (chunk
              forward, save-gates backward, head + CE).
@@ -102,15 +105,30 @@ nonzero:
              one-shot), ``vqvae-torch-generate`` and ``vqvae-torch-score`` on
              the synthetic VCTK tree; each exits 0, and their launch counts
              show the encoder's two kernels and the decode kernel launched.
+14. probes — the four probe modules as subprocesses
+             (``python3 -m vqvae_tpu_torch.probes.<name>``): the upsampler's
+             forward and backward kernels against upsample_apply and its
+             autograd at the probe's shapes, and against their plain
+             versions at vctk-multi width, B=16 and B=64, float32 and
+             bfloat16 (1e-4 / 3e-2 of max), timed beside the plain
+             versions, conv_transpose1d and the cost of reading [B, T, d];
+             the dot probe's three contractions (1e-4 of max), leading-dim
+             split and pad/add/slice (bit-equal); the reshape probe's five
+             layouts (bit-equal) and its fused composition (1e-4); the
+             bf16 and int8 decode chains at L=2 and L=30, 1 and 2 steps
+             (int8 bit-equal, bf16 3e-2 of max, outputs not zero), timed
+             at L=30, STEPS=128 beside the decode kernel's per-layer time
+             from the request phase.  Each probe's launches come from its
+             timed run.
 
-Then one JSON line of per-kernel results and, last, the device line.
+The train-time phases also print each step's share of the bf16 peak by
+``utils/flops.py::train_step_flops``.  Then one JSON line of per-kernel results and, last, the device line.
 """
 
 import json
 import os
 import re
 import shutil
-import socket
 import subprocess
 import sys
 import tempfile
@@ -285,9 +303,11 @@ def resume_phase(dc, flag, device):
 
 
 class Daemon:
-    """The serving daemon as a subprocess, with a line-JSON client."""
+    """The serving daemon as a subprocess, driven through the port's own
+    client (``vqvae_tpu_torch.client.CodecClient``)."""
 
     def __init__(self, npz, workdir):
+        from vqvae_tpu_torch.client import CodecClient
         self.sock = os.path.join(workdir, "codec.sock")
         self.log_path = os.path.join(workdir, "serve.log")
         self.log = open(self.log_path, "w")
@@ -302,10 +322,7 @@ class Daemon:
             if time.monotonic() > deadline:
                 self.fail("daemon did not come up in 300 s")
             time.sleep(0.2)
-        self.conn = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
-        self.conn.settimeout(300)
-        self.conn.connect(self.sock)
-        self.f = self.conn.makefile("rwb")
+        self.client = CodecClient(socket_path=self.sock, timeout=300)
 
     def fail(self, msg):
         self.close()
@@ -313,18 +330,10 @@ class Daemon:
             print(f.read()[-4000:], flush=True)
         fail(msg)
 
-    def __call__(self, req):
-        self.f.write(json.dumps(req).encode() + b"\n")
-        self.f.flush()
-        line = self.f.readline()
-        if not line:
-            self.fail(f"daemon closed the connection on {req['op']}")
-        resp = json.loads(line)
-        if not resp.get("ok"):
-            self.fail(f"{req['op']} failed: {resp}")
-        return resp
-
     def close(self):
+        if getattr(self, "client", None) is not None:
+            self.client.close()
+            self.client = None
         if self.proc.poll() is None:
             self.proc.terminate()
             try:
@@ -335,19 +344,8 @@ class Daemon:
         self.log.close()
 
 
-def pcm16(wav):
-    import base64
-    pcm = np.round(np.clip(wav, -1, 1) * 32767.0).astype("<i2")
-    return base64.b64encode(pcm.tobytes()).decode()
-
-
-def unpcm16(b64):
-    import base64
-    return np.frombuffer(base64.b64decode(b64), "<i2").astype(
-        np.float32) / 32767.0
-
-
 def serve_phase(flag, cfg_all, device, dc):
+    from vqvae_tpu_torch.client import ServerError
     from vqvae_tpu_torch.train.checkpoint import export_weights
     t0 = time.monotonic()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
@@ -358,27 +356,28 @@ def serve_phase(flag, cfg_all, device, dc):
     d = Daemon(npz, work)
     say("serve", t0, f"daemon up on {d.sock}")
     try:
+        c = d.client
         sr, hop = cfg_all.data.sr, flag.hop
         dc.launches = 0   # this process's count; the daemon's is below
         t0 = time.monotonic()
-        ping = d({"op": "ping"})
+        ping = c.ping()
         check(ping["engine"] == "kernel"
               and ping["device"].startswith(device.type),
               f"daemon not on the kernel engine on {device.type}: {ping}")
         before = ping["kernel_launches"]
         t = np.arange(sr) / sr
         tone = (0.5 * np.sin(2 * np.pi * 220 * t)).astype(np.float32)
-        codes = d({"op": "encode", "pcm16": pcm16(tone)})["codes"]
-        check(len(codes) == sr // hop and
-              all(0 <= c < flag.K for c in codes), "bad encode output")
+        codes = c.encode(tone)
+        check(codes.shape == (sr // hop,) and codes.min() >= 0
+              and codes.max() < flag.K, "bad encode output")
         outs = {}
         for name, kw in (("greedy", {"greedy": True}),
                          ("sampled", {"seed": 7, "temperature": TEMP})):
-            r = d({"op": "decode", "codes": codes, "speaker": 3, **kw})
-            outs[name] = unpcm16(r["pcm16"])
-        r = d({"op": "reconstruct", "pcm16": pcm16(tone), "greedy": True})
-        check(r["codes"] == codes, "reconstruct codes differ from encode")
-        outs["reconstruct"] = unpcm16(r["pcm16"])
+            outs[name] = c.decode(codes, speaker=3, **kw)
+        wav, rcodes = c.reconstruct(tone, greedy=True)
+        check(np.array_equal(rcodes, codes),
+              "reconstruct codes differ from encode")
+        outs["reconstruct"] = wav
         for name, wav in outs.items():
             check(wav.shape == (len(codes) * hop,), f"{name}: length "
                   f"{wav.shape}")
@@ -386,46 +385,41 @@ def serve_phase(flag, cfg_all, device, dc):
                   f"{name}: audio not finite in [-1, 1]")
         for name, kw in (("greedy", {"greedy": True}),
                          ("sampled", {"seed": 7, "temperature": TEMP})):
-            sid = d({"op": "stream_open", "mode": "codes", "speaker": 3,
-                     **kw})["session"]
-            pieces, i = [], 0
-            for w in (37, 1, 100, len(codes) - 138):
-                r = d({"op": "stream_push", "session": sid,
-                       "codes": codes[i:i + w]})
-                pieces.append(unpcm16(r["pcm16"]))
-                i += w
-            pieces.append(unpcm16(d({"op": "stream_close",
-                                     "session": sid})["pcm16"]))
-            got = np.concatenate(pieces)
-            check(np.array_equal(got, outs[name]),
+            with c.open_stream("codes", speaker=3, **kw) as s:
+                pieces, i = [], 0
+                for w in (37, 1, 100, len(codes) - 138):
+                    pieces.append(s.push_codes(codes[i:i + w]))
+                    i += w
+                pieces.append(s.close())
+            check(np.array_equal(np.concatenate(pieces), outs[name]),
                   f"{name} codes-mode session != one-shot decode")
         # a pcm-mode session (streaming encoder in front) == reconstruct
-        sid = d({"op": "stream_open", "mode": "pcm", "greedy": True})[
-            "session"]
-        pieces = [unpcm16(d({"op": "stream_push", "session": sid,
-                             "pcm16": pcm16(tone[a:b])})["pcm16"])
-                  for a, b in ((0, 300), (300, 301), (301, 9000),
-                               (9000, sr))]
-        pieces.append(unpcm16(d({"op": "stream_close",
-                                 "session": sid})["pcm16"]))
+        with c.open_stream("pcm", greedy=True) as s:
+            pieces = [s.push_pcm(tone[a:b]) for a, b in
+                      ((0, 300), (300, 301), (301, 9000), (9000, sr))]
+            pieces.append(s.close())
         check(np.array_equal(np.concatenate(pieces), outs["reconstruct"]),
               "pcm-mode session != one-shot reconstruct")
-        stats = d({"op": "stats"})
+        try:
+            c.decode([flag.K], greedy=True)
+            fail("the daemon took an out-of-range code id")
+        except ServerError:
+            pass
+        stats = c.stats()
         launched = stats["kernel_launches"] - before
         check(launched > 0, "the daemon's requests launched no kernel")
         check(dc.launches == 0, "this process launched during the serve run")
         ops = stats["ops"]
-        say("serve", t0, "ping, encode, decode (greedy, sampled), "
-            "reconstruct, 2 codes-mode sessions (== one-shot decode) and a "
-            "pcm-mode session (== reconstruct), bit for bit, "
-            f"ok; {launched} kernel launches; realtime {ping['realtime_x']}x"
+        say("serve", t0, "through vqvae_tpu_torch.client: ping, encode, "
+            "decode (greedy, sampled), reconstruct, 2 codes-mode sessions "
+            "(== one-shot decode) and a pcm-mode session (== reconstruct), "
+            "bit for bit, an out-of-range id refused; "
+            f"{launched} kernel launches; realtime {ping['realtime_x']}x"
             f", session {ping['session_realtime_x']}x at "
             f"{ping['chunk']} frames/push; decode p50 "
             f"{ops['decode']['ms']['p50']} ms for {len(codes)} frames "
             f"({len(codes) * hop / sr:.2f} s of audio)")
-        d.f.write(b'{"op": "shutdown"}\n')
-        d.f.flush()
-        d.f.readline()
+        c.shutdown()
         d.proc.wait(timeout=60)
     finally:
         d.close()
@@ -546,6 +540,48 @@ def enc_work(B, M0, C, d, L, backward):
     grads = 4 * (L * 4 * C * C + L * C + C * d + d)
     return (3 * taps + 2 * 2 * Nz * C * d,
             2 * B * M0 * C + weights + 4 * Nz * d + 2 * B * M0 * C + grads)
+
+
+def upsample_work(B, Tl, hop, d, es, backward):
+    """(flops, bytes) of the upsampler on e [B, Tl, d] (es bytes an
+    element): forward, every real tap (2·d products for each of the
+    B·T·d outputs); e, uwk and the bias read once, cond written once.
+    Backward: de and duw (each 2·B·Tl·2hop·d·d) and dub's adds; dcond
+    (float32), e and uwk read, de, duw and dub (float32) written."""
+    T = Tl * hop
+    uwk = d * 2 * hop * d
+    if not backward:
+        return (2 * B * T * d * 2 * d,
+                es * (B * Tl * d + uwk + B * T * d) + 4 * d)
+    return (2 * 2 * B * Tl * 2 * hop * d * d + B * T * d,
+            4 * B * T * d + es * (B * Tl * d + uwk)
+            + 4 * (B * Tl * d + uwk + d))
+
+
+def dot_work(N, hop, d):
+    """(flops, bytes) of the dot probe's three contractions, float32:
+    nd,rde->nre, nrd,rde->ne and nd,nre->dre, each 2·N·hop·d·d
+    operations; each one's inputs read and output written once."""
+    W, dp, e = hop * d * d, N * hop * d, N * d
+    return (3 * 2 * N * hop * d * d,
+            4 * ((e + W + dp) + (dp + W + e) + (e + dp + W)))
+
+
+def compose_work(N, hop, d, E):
+    """(flops, bytes) of ((x @ w).reshape(N·hop, d)) @ v, float32."""
+    return (2 * N * d * hop * d + 2 * N * hop * d * E,
+            4 * (N * d + d * hop * d + d * E + N * hop * E))
+
+
+def chain_work(L, steps, rows, width, int8):
+    """(flops, bytes) of the decode chain: L·steps products of
+    [rows, width] x [width, width]; x0, the weights (and the int8
+    scales) read once, the bf16 output written once.  The products
+    depend on each other one after the other, so the chain is bound by
+    their latency, far above this."""
+    flops = 2 * rows * width * width * L * steps
+    w = L * width * width * (1 if int8 else 2) + (4 * L if int8 else 0)
+    return flops, 2 * rows * width + w + 2 * rows * width
 
 
 def chunk_work(mode, B, T, R, S, d, nl, mu, backward):
@@ -797,7 +833,8 @@ def train_cli_phase():
     try:
         r = subprocess.run(
             [sys.executable, "-m", "vqvae_tpu_torch.cli.train", "--preset",
-             TRAIN_PRESET, "--dataset", "sine", "--steps", "3", "--out", out],
+             TRAIN_PRESET, "--dataset", "sine", "--steps", "3", "--out", out,
+             "--profile", "2"],
             cwd=ROOT, capture_output=True, text=True, timeout=900)
         if r.returncode != 0:
             print(r.stdout[-4000:], r.stderr[-4000:], flush=True)
@@ -817,10 +854,20 @@ def train_cli_phase():
                 if ln.startswith("kernel launches: ")]
         check(len(line) == 1, "the trainer printed no launch counts")
         counts = json.loads(line[0].split(": ", 1)[1])
+        traces = [os.path.join(out, "profile", f) for f in
+                  os.listdir(os.path.join(out, "profile"))]
+        check(len(traces) == 1 and os.path.getsize(traces[0]) > 0,
+              f"--profile 2 left no trace: {traces}")
+        with open(traces[0]) as f:
+            events = json.load(f).get("traceEvents", [])
+        n_dev = sum(1 for ev in events if ev.get("cat") == "kernel")
+        check(n_dev > 0, "the --profile trace holds no kernel of the card")
         path = ("chunk_fwd", "chunk_bwd", "head_ce_fwd", "head_ce_bwd")
         check(all(counts[k] > 0 for k in path),
               f"a kernel of the stretch path was not launched: {counts}")
-        say("train-cli", t0, f"{TRAIN_PRESET}, 3 steps: exit 0; step 1 "
+        say("train-cli", t0, f"{TRAIN_PRESET}, 3 steps with --profile 2: "
+            f"exit 0; trace {os.path.basename(traces[0])} "
+            f"{os.path.getsize(traces[0])} bytes, {n_dev} card kernels; step 1 "
             f"loss1 {recs[0]['loss1']:.4f} loss2 {recs[0]['loss2']:.4f} "
             f"loss3 {recs[0]['loss3']:.4f}; weights.npz loads; launches "
             f"{counts}")
@@ -883,6 +930,7 @@ def train_time_phase(cfg_all, device, errs):
     from vqvae_tpu_torch.kernels import wavenet_train_cuda as wt
     from vqvae_tpu_torch.train.state import create_train_state
     from vqvae_tpu_torch.train.step import train_step
+    from vqvae_tpu_torch.utils.flops import train_step_flops
     cfg = cfg_all
     B, T = cfg.train.batch_size, cfg.data.length
     loader = BatchLoader(SineDataset(cfg.data), B, seed=0)
@@ -914,9 +962,11 @@ def train_time_phase(cfg_all, device, errs):
     peak = torch.cuda.max_memory_allocated(device)
     check(np.isfinite(float(m["loss"])), "non-finite loss at B=64")
     wall, busy, rows = profile_step(step, 2)
+    mfu = train_step_flops(cfg, B) / (step_ms / 1e3) / PEAK_FLOPS
     say("train-time", t0, f"{TRAIN_PRESET} B={B} T={T} bf16: "
         f"{step_ms:.1f} ms/step ({B * T / step_ms * 1e3 / 16000:.2f} s of "
-        f"audio per s), peak memory {peak / 2**30:.2f} GiB; device busy "
+        f"audio per s; {100 * mfu:.2f}% of 989 TFLOP/s by "
+        f"train_step_flops), peak memory {peak / 2**30:.2f} GiB; device busy "
         f"{busy:.1f} of {wall:.1f} ms over 2 steps "
         f"({100 * busy / wall:.1f}%)")
     for ms_, key, count in rows[:14]:
@@ -1139,6 +1189,7 @@ def train_time_vctk_phase(device, errs):
     from vqvae_tpu_torch.kernels import wavenet_train_cuda as wt
     from vqvae_tpu_torch.train.state import create_train_state
     from vqvae_tpu_torch.train.step import train_step
+    from vqvae_tpu_torch.utils.flops import train_step_flops
     cfg = get_config(PRESET)
     B, T = cfg.train.batch_size, cfg.data.length
     loader = BatchLoader(SineDataset(cfg.data), B, seed=0)
@@ -1180,9 +1231,11 @@ def train_time_vctk_phase(device, errs):
         peak = torch.cuda.max_memory_allocated(device)
         check(np.isfinite(float(m["loss"])), f"{name}: non-finite loss")
         each = ", ".join(f"{t:.1f}" for t in ts)
+        mfu = train_step_flops(get_config(PRESET), B) / (ms / 1e3) / PEAK_FLOPS
         say("train-time-vctk", t0, f"{PRESET} B={B} T={T} bf16, "
             f"decoder {name}: {ms:.1f} ms/step (median of {each}; "
-            f"{B * T / ms * 1e3 / 16000:.2f} s of audio per s), peak memory "
+            f"{B * T / ms * 1e3 / 16000:.2f} s of audio per s; "
+            f"{100 * mfu:.2f}% of 989 TFLOP/s), peak memory "
             f"{peak / 2**30:.2f} GiB")
         del step
         torch.cuda.empty_cache()
@@ -1523,6 +1576,133 @@ def cli_codec_phase(device):
         shutil.rmtree(work, ignore_errors=True)
 
 
+def run_probe(name, *args, timeout=600):
+    """``python3 -m vqvae_tpu_torch.probes.<name>`` as a user runs it:
+    (its JSON record, its stdout)."""
+    cmd = [sys.executable, "-m", f"vqvae_tpu_torch.probes.{name}", *args]
+    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                       timeout=timeout)
+    recs = [json.loads(ln) for ln in r.stdout.splitlines()
+            if ln.startswith('{"probe"')]
+    if r.returncode != 0 or len(recs) != 1:
+        print(r.stdout[-4000:], r.stderr[-4000:], flush=True)
+        fail(f"probe {name} exited with {r.returncode}")
+    rec = recs[0]
+    for key, row in rec["checks"].items():
+        check(row.get("exact", True) and
+              row.get("max_rel_err", 0.0) <= row.get("tol", 0.0),
+              f"probe {name}: {key} outside its tolerance: {row}")
+    check(not rec["failed"], f"probe {name}: {rec['failed']}")
+    return rec, r.stdout
+
+
+def probes_phase(decode_us):
+    """The four probe modules as subprocesses: their kernels' checks,
+    times, launches; and the kernels-line fields of the seven kernels,
+    with bounds from the shapes the probes report.  decode_us: the decode
+    kernel's µs per step from the request phase, for the chain's
+    comparison."""
+    out = {}
+    t0 = time.monotonic()
+    rec, _ = run_probe("cond_inkernel", "--batch", "16", "64")
+    runs = {(r["batch"], r["dtype"]): r for r in rec["runs"]}
+    for (B, dt), r in sorted(runs.items()):
+        es = 2 if dt == "bfloat16" else 4
+        peak = PEAK_FLOPS if dt == "bfloat16" else PEAK_F32
+        bf = bound(*upsample_work(B, r["Tl"], r["hop"], r["d"], es, False),
+                   peak)
+        bb = bound(*upsample_work(B, r["Tl"], r["hop"], r["d"], es, True),
+                   peak)
+        say("probes", t0, f"cond {dt} B={B}: forward {r['fwd_ms']:.4f} ms "
+            f"(bound {bf[0]:.4f}, {bf[1]}; plain {r['plain_fwd_ms']:.4f}; "
+            f"conv_transpose1d {r['library_fwd_ms']:.4f}); backward "
+            f"{r['bwd_ms']:.4f} ms (bound {bb[0]:.4f}, {bb[1]}; plain "
+            f"{r['plain_bwd_ms']:.4f}; autograd {r['library_bwd_ms']:.4f}); "
+            f"reading cond: {r['read_bound_ms']:.4f} ms at 3.35 TB/s, "
+            f"copy_ {r['copy_ms']:.4f} ms")
+        if (B, dt) == (16, "bfloat16"):
+            main_run, bounds = r, (bf, bb)
+    errs = {k: max((row["max_abs_err"] for key, row in rec["checks"].items()
+                    if key.startswith(pre)), default=0.0)
+            for k, pre in (("cond_fwd", "fwd"), ("cond_bwd", "bwd"))}
+    for name, key, lib in (("cond_fwd", "fwd", "library_fwd_ms"),
+                           ("cond_bwd", "bwd", "library_bwd_ms")):
+        bms, bby = bounds[0] if key == "fwd" else bounds[1]
+        out[name] = dict(
+            launches=sum(r["launches"][name] for r in runs.values()),
+            max_abs_err=errs[name], ms=main_run[f"{key}_ms"],
+            plain_ms=main_run[f"plain_{key}_ms"], bound_ms=bms,
+            bound_by=bby, library_ms=main_run[lib])
+
+    t0 = time.monotonic()
+    rec, _ = run_probe("dot")
+    t, sh = rec["times"], rec["shape"]
+    contr = ("nd,rde->nre", "nrd,rde->ne", "nd,nre->dre")
+    bms, bby = bound(*dot_work(sh["N"], sh["hop"], sh["d"]), PEAK_F32)
+    out["probe_dot"] = dict(
+        launches=rec["launches"]["probe_dot"],
+        max_abs_err=max(r["max_abs_err"] for r in rec["checks"].values()),
+        ms=sum(t[k]["ms"] for k in contr),
+        plain_ms=sum(t[k]["plain_ms"] for k in contr), bound_ms=bms,
+        bound_by=bby, library_ms=sum(t[k]["library_ms"] for k in contr))
+    say("probes", t0, "dot: " + "; ".join(
+        f"{k} {1e3 * v['ms']:.2f} us (plain {1e3 * v['plain_ms']:.2f}"
+        + (f", library {1e3 * v['library_ms']:.2f})" if v["library_ms"]
+           else ")") for k, v in t.items()))
+
+    t0 = time.monotonic()
+    rec, _ = run_probe("reshape")
+    t, sh = rec["times"], rec["shape"]
+    cases = [k for k in t if k != "composition"]
+    nbytes = 2 * 4 * sh["N"] * sh["hop"] * sh["d"]
+    bms, bby = bound(0, len(cases) * nbytes)
+    out["probe_reshape"] = dict(
+        launches=rec["launches"]["probe_reshape"],
+        max_abs_err=max(rec["checks"][k]["max_abs_err"] for k in cases),
+        ms=sum(t[k]["ms"] for k in cases),
+        plain_ms=sum(t[k]["plain_ms"] for k in cases), bound_ms=bms,
+        bound_by=bby, library_ms=sum(t[k]["library_ms"] for k in cases))
+    bms, bby = bound(*compose_work(sh["N"], sh["hop"], sh["d"], sh["E"]),
+                     PEAK_F32)
+    out["probe_compose"] = dict(
+        launches=rec["launches"]["probe_compose"],
+        max_abs_err=rec["checks"]["composition"]["max_abs_err"],
+        ms=t["composition"]["ms"], plain_ms=t["composition"]["plain_ms"],
+        bound_ms=bms, bound_by=bby, library_ms=None)
+    say("probes", t0, f"reshape: 5 layouts exact, {1e3 * out['probe_reshape']['ms']:.2f} us "
+        f"in all (clone {1e3 * out['probe_reshape']['library_ms']:.2f}); "
+        f"composition {1e3 * t['composition']['ms']:.2f} us (plain "
+        f"{1e3 * t['composition']['plain_ms']:.2f})")
+
+    t0 = time.monotonic()
+    rec, _ = run_probe("decode_int8_micro", "--decode-us", repr(decode_us))
+    sh = rec["shape"]
+    for name, int8, peak in (("chain_bf16", False, PEAK_FLOPS),
+                             ("chain_int8", True, 2 * PEAK_FLOPS)):
+        key = "int8" if int8 else "bf16"
+        bms, bby = bound(*chain_work(sh["L"], sh["STEPS"], sh["B"],
+                                     sh["width"], int8), peak)
+        out[name] = dict(
+            launches=rec["launches"][name],
+            max_abs_err=max(r["max_abs_err"] for k, r in
+                            rec["checks"].items() if k.startswith(key)),
+            ms=rec[f"{key}_ms"], plain_ms=rec[f"plain_{key}_ms"],
+            bound_ms=bms, bound_by=bby, library_ms=None)
+    say("probes", t0, f"decode chain L={sh['L']} STEPS={sh['STEPS']}: bf16 "
+        f"{rec['bf16_us_per_chainstep']:.3f} us/step "
+        f"({rec['per_matmul_ns_bf16']:.1f} ns/product), int8 "
+        f"{rec['int8_us_per_chainstep']:.3f} us/step "
+        f"({rec['per_matmul_ns_int8']:.1f} ns/product); the decode kernel "
+        f"{rec['decode_kernel_ns_per_layer']:.1f} ns/layer (request phase); "
+        f"bounds "
+        f"{out['chain_bf16']['bound_ms']:.4f} / "
+        f"{out['chain_int8']['bound_ms']:.4f} ms (operations; the "
+        f"dependency makes the chain latency-bound)")
+    for name, v in out.items():
+        check(v["launches"] > 0, f"{name}: not launched in its probe run")
+    return out
+
+
 def main():
     t0 = time.monotonic()
     smi = nvidia_smi()
@@ -1545,7 +1725,9 @@ def main():
                "vqvae_wavenet_train": "wavenet_train.cu",
                "vqvae_head_ce": "head_ce.cu",
                "vqvae_vq": "vq.cu",
-               "vqvae_encoder": "encoder.cu"}
+               "vqvae_encoder": "encoder.cu",
+               "vqvae_upsample": "upsample.cu",
+               "vqvae_decode_chain": "decode_chain.cu"}
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         # one nvcc per source, all started together
         for f in [pool.submit(build.build, k, [v])
@@ -1623,6 +1805,23 @@ def main():
                         "replaces": replaces, "launches": counts[name],
                         "max_abs_err": errs[name], **timing[name],
                         "library_ms": None})
+    probe = probes_phase(1e3 * ms / T_req)
+    for name, src, replaces in (
+            ("cond_fwd", "upsample.cu", "scripts/cond_inkernel_probe.py:91"),
+            ("cond_bwd", "upsample.cu",
+             "scripts/cond_inkernel_probe.py:103"),
+            ("probe_reshape", "upsample.cu",
+             "scripts/mosaic_reshape_probe.py:29"),
+            ("probe_compose", "upsample.cu",
+             "scripts/mosaic_reshape_probe.py:91"),
+            ("probe_dot", "upsample.cu", "scripts/mosaic_dot_probe.py:26"),
+            ("chain_bf16", "decode_chain.cu",
+             "scripts/decode_int8_micro.py:44"),
+            ("chain_int8", "decode_chain.cu",
+             "scripts/decode_int8_micro.py:48")):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"vqvae_tpu_torch/csrc/{src}",
+                        "replaces": replaces, **probe[name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

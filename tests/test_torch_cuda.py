@@ -319,3 +319,129 @@ def test_streaming_encoder_with_the_kernel_equals_one_shot(cuda):
                   for i in range(0, wav.shape[1], width)]
         pieces.append(enc.flush())
         np.testing.assert_array_equal(np.concatenate(pieces, 1), want)
+
+
+# ---- the upsampler and the probes (csrc/upsample.cu) ----------------------
+
+from vqvae_tpu_torch.kernels import upsample_cuda as uc        # noqa: E402
+from vqvae_tpu_torch.kernels import decode_chain_cuda as chn   # noqa: E402
+
+
+def _cond_inputs(cdt, dev, B, Tl, hop=64, d=64, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randn(2 * hop, d, d, generator=g) * 0.1
+    b = torch.randn(d, generator=g) * 0.1
+    uwk, ub = uc.pack_upsampler(w, b)
+    e = torch.randn(B, Tl, d, generator=g)
+    dcond = torch.randn(B, Tl * hop, d, generator=g)
+    return (e.to(dev, cdt), uwk.to(dev, cdt), ub.to(dev), dcond.to(dev))
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Tl", [(4, 16), (3, 121)])
+def test_cond_upsample_kernels_vs_plain(cuda, cdt, B, Tl):
+    """The upsampler's forward and backward kernels: cond and the three
+    gradients within 1e-4 (float32) / 3e-2 (bfloat16) of their max, at
+    the probe's shape and at a ragged one (Tl+1 frames not a multiple of
+    the 64-frame tile)."""
+    e, uwk, ub, dcond = _cond_inputs(cdt, cuda, B, Tl)
+    before = dict(uc.launches)
+    got = uc.cond_forward(e, uwk, ub, 64)
+    grads = uc.cond_backward(dcond, e, uwk, 64)
+    assert uc.launches["cond_fwd"] == before["cond_fwd"] + 1
+    assert uc.launches["cond_bwd"] == before["cond_bwd"] + 1
+    assert got.dtype == cdt
+    assert _rel_err(got, uc.cond_fwd_plain(e, uwk, ub, 64)) <= TRAIN_TOL[cdt]
+    for a, b in zip(grads, uc.cond_bwd_plain(dcond, e, uwk, 64)):
+        assert _rel_err(a, b) <= TRAIN_TOL[cdt]
+
+
+@pytest.mark.parametrize("B", [16, 64])
+def test_cond_backward_scratch_follows_the_split_policy(cuda, B):
+    """The backward's scratch at vctk-multi width (T=7680) comes from the
+    kernel library's split policy: a few split-K copies of duw, not one
+    per possible split."""
+    part = uc._scratch("cond_bwd", B, 120, 64, 64, device=cuda)
+    duw = 64 * 2 * 64 * 64
+    assert duw <= part.numel() <= 8 * duw
+
+
+def test_cond_upsample_equals_upsample_apply(cuda):
+    """The kernel's cond equals the port's upsample_apply (float32)."""
+    from vqvae_tpu_torch.ops.conv import upsample_apply
+    g = torch.Generator().manual_seed(3)
+    w = torch.randn(128, 64, 64, generator=g) * 0.1
+    b = torch.randn(64, generator=g) * 0.1
+    e = torch.randn(2, 30, 64, generator=g)
+    uwk, ub = uc.pack_upsampler(w, b)
+    got = uc.cond_upsample(e.to(cuda), uwk.to(cuda), ub.to(cuda), 64)
+    want = upsample_apply({"w": w, "b": b}, e, 64)
+    assert _rel_err(got.cpu(), want) <= 1e-4
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_dot_probe_kernels_vs_plain(cuda, cdt):
+    """nd,rde->nre, nrd,rde->ne and nd,nre->dre within 1e-4 / 3e-2 of
+    max; the time-axis overlap-add within float32 rounding (bit-equal in
+    float32) and the leading-dim split bit-equal."""
+    g = torch.Generator().manual_seed(0)
+    N, hop, d = 32, 64, 64
+    ef = torch.randn(N, d, generator=g).to(cuda, cdt)
+    W = (torch.randn(hop, d, d, generator=g) * 0.1).to(cuda, cdt)
+    dp = torch.randn(N, hop, d, generator=g).to(cuda)
+    before = uc.launches["probe_dot"]
+    pairs = [(uc.tap_product_kernel(ef, W), uc.tap_product_plain(ef, W)),
+             (uc.tap_adjoint_kernel(dp, W), uc.tap_adjoint_plain(dp, W)),
+             (uc.tap_wgrad_kernel(ef, dp), uc.tap_wgrad_plain(ef, dp))]
+    for a, b in pairs:
+        assert _rel_err(a, b) <= TRAIN_TOL[cdt]
+    big = torch.randn(N * hop, d, generator=g).to(cuda)
+    assert torch.equal(uc.overlap_add_kernel(big, hop),
+                       uc.overlap_add_plain(big, hop))
+    assert torch.equal(uc.relayout_kernel(big, (N, hop, d), "probe_dot"),
+                       big.reshape(N, hop, d))
+    assert uc.launches["probe_dot"] == before + 5
+
+
+def test_reshape_probe_kernels_exact(cuda):
+    """The five reshapes are exact copies; the composition within 1e-4
+    of max."""
+    g = torch.Generator().manual_seed(1)
+    N, hop, d = 32, 64, 64
+    for src, dst in (((N, hop * d), (N * hop, d)), ((N, hop, d), (N * hop, d)),
+                     ((N, hop * d), (N, hop, d)), ((hop * d, N), (hop, d, N)),
+                     ((hop, d, N), (hop * d, N))):
+        x = torch.randn(*src, generator=g).to(cuda)
+        assert torch.equal(uc.relayout_kernel(x, dst), x.reshape(dst))
+    x = torch.randn(N, d, generator=g).to(cuda)
+    w = (torch.randn(d, hop * d, generator=g) * 0.1).to(cuda)
+    v = (torch.randn(d, 128, generator=g) * 0.1).to(cuda)
+    before = uc.launches["probe_compose"]
+    got = uc.compose_kernel(x, w, v, hop)
+    assert uc.launches["probe_compose"] == before + 1
+    assert _rel_err(got, uc.compose_plain(x, w, v, hop)) <= 1e-4
+
+
+def _chain_inputs(L, dev):
+    """The micro-benchmark's data (numpy seed 0) at L layers; past L=2
+    the int8 scales that keep that chain from zero, one per layer."""
+    from vqvae_tpu_torch.probes import decode_int8_micro as dim
+    x, w16, w8, sc = dim.script_data(L, dev)
+    return x, w16, w8, (sc if L <= 2 else dim.held_scales(L, dev))
+
+
+@pytest.mark.parametrize("L,steps", [(2, 1), (2, 2), (30, 1), (30, 2)])
+def test_decode_chain_kernels_vs_plain(cuda, L, steps):
+    """int8 bit-equal to its plain version, bf16 within 3e-2 of max, on
+    outputs that are not all zero, at L=2 and at the timed L=30, where
+    the weight layer and scale a product reads differ from the parity of
+    the buffer it streams into."""
+    x, w16, w8, sc = _chain_inputs(L, cuda)
+    got8 = chn.chain_kernel(x, w8, steps, sc)
+    want8 = chn.chain_int8_plain(x, w8, sc, steps)
+    assert float(want8.float().abs().max()) > 0
+    assert torch.equal(got8, want8)
+    got16 = chn.chain_kernel(x, w16, steps)
+    want16 = chn.chain_bf16_plain(x, w16, steps)
+    assert float(want16.float().abs().max()) > 0
+    assert _rel_err(got16, want16) <= 3e-2

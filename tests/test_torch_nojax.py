@@ -26,6 +26,13 @@ def test_port_imports_without_jax():
         "import vqvae_tpu_torch.cli.encode, vqvae_tpu_torch.cli.decode\n"
         "import vqvae_tpu_torch.cli.generate, vqvae_tpu_torch.cli.stream\n"
         "import vqvae_tpu_torch.cli.score, vqvae_tpu_torch.cli.export\n"
+        "import vqvae_tpu_torch.client\n"
+        "import vqvae_tpu_torch.utils.flops, vqvae_tpu_torch.utils.profiling\n"
+        "import vqvae_tpu_torch.kernels.upsample_cuda\n"
+        "import vqvae_tpu_torch.kernels.decode_chain_cuda\n"
+        "import vqvae_tpu_torch.probes.cond_inkernel\n"
+        "import vqvae_tpu_torch.probes.dot, vqvae_tpu_torch.probes.reshape\n"
+        "import vqvae_tpu_torch.probes.decode_int8_micro\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'vqvae_tpu'))\n"
         "print(bad)\n"

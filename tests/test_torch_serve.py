@@ -52,7 +52,7 @@ def server(tmp_path_factory):
         assert proc.poll() is None, open(log_path).read()[-3000:]
         assert time.time() < deadline, "server did not come up"
         time.sleep(0.2)
-    yield {"sock": sock, "npz": npz, "jparams": jparams}
+    yield {"sock": sock, "npz": npz, "jparams": jparams, "log": log_path}
     if proc.poll() is None:
         try:
             with CodecClient(socket_path=sock) as c:
@@ -182,3 +182,92 @@ def test_cuda_device_without_gpu_raises():
     cfg = get_config("tiny")
     with pytest.raises(RuntimeError, match="CUDA"):
         Codec(init_model(cfg.model), cfg, device="cuda")
+
+
+def test_port_client_round_trip_matches_jax_client(server):
+    """The port's own client (vqvae_tpu_torch.client) against the same
+    daemon: ping, encode, decode, reconstruct and a codes-mode session
+    give the JAX client's answers."""
+    from vqvae_tpu_torch.client import CodecClient as PortClient
+    from vqvae_tpu_torch.client import ServerError as PortServerError
+    wav = _tone(2000)
+    codes = np.random.default_rng(8).integers(0, 128, 13)
+    answers = []
+    for client in (PortClient, CodecClient):
+        with client(socket_path=server["sock"]) as c:
+            ping = c.ping()
+            enc = c.encode(wav)
+            dec = [c.decode(codes, speaker=1, greedy=True),
+                   c.decode(codes, speaker=1, seed=4, temperature=0.9)]
+            rec, rcodes = c.reconstruct(wav, greedy=True)
+            with c.open_stream(speaker=1, greedy=True) as s:
+                pieces = [s.push_codes(codes[:4]), s.push_codes(codes[4:])]
+                pieces.append(s.close())
+            answers.append((ping, enc, dec, rec, rcodes,
+                            np.concatenate(pieces)))
+    port, jax_ = answers
+    assert port[0] == jax_[0]
+    assert port[1].dtype == np.int32 and np.array_equal(port[1], jax_[1])
+    for a, b in zip(port[2], jax_[2]):
+        assert a.dtype == np.float32 and np.array_equal(a, b)
+    assert np.array_equal(port[3], jax_[3])
+    assert np.array_equal(port[4], jax_[4]) and np.array_equal(port[4],
+                                                               port[1])
+    assert np.array_equal(port[5], port[2][0])
+    with PortClient(socket_path=server["sock"]) as c:
+        with pytest.raises(PortServerError, match="code ids"):
+            c.decode([0, 999])
+
+
+def test_port_client_loads_without_jax():
+    """``import vqvae_tpu_torch.client`` loads neither JAX nor the JAX
+    package (``import vqvae_tpu.client`` does, through the package)."""
+    import subprocess
+    import sys
+    code = ("import sys, vqvae_tpu_torch.client\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'vqvae_tpu')))")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120,
+                       cwd=os.path.dirname(os.path.dirname(
+                           os.path.abspath(__file__))))
+    assert r.returncode == 0 and r.stdout.strip() == "[]", r.stdout + r.stderr
+
+
+def test_session_rate_guard(server, port_params, monkeypatch):
+    """The session-rate guard: ``measure_session_realtime`` is the audio
+    of one ``chunk``-frame push over the median push time, the fill and
+    warm pushes left out; the daemon reports it in ``ping`` as
+    ``session_realtime_x`` and warns at startup when it is below 1."""
+    from types import SimpleNamespace
+
+    import vqvae_tpu_torch.cli.serve as serve_mod
+    from vqvae_tpu_torch.configs import get_config
+    cfg = get_config("tiny")
+    clock = [100.0]
+    pushes = [9.0, 9.0, 0.1, 0.3, 0.2, 0.4, 0.25, 0.15, 0.35, 0.05]
+
+    class FakeSession:
+        def push(self, codes):
+            assert codes.shape == (1, 4)
+            clock[0] += pushes.pop(0)
+
+        def close(self):
+            pass
+
+    codec = serve_mod.Codec(port_params, cfg, chunk=4, device="cpu")
+    monkeypatch.setattr(codec, "_session_decoder", lambda *a: FakeSession())
+    monkeypatch.setattr(serve_mod, "time",
+                        SimpleNamespace(monotonic=lambda: clock[0]))
+    got = codec.measure_session_realtime(n_push=8)
+    audio_s = 4 * 64 / 16000
+    assert got == codec.session_realtime_x == round(audio_s / 0.225, 2)
+    assert not pushes
+    # the running daemon: ping carries its startup measurement, and the
+    # startup warning appears exactly when it is below realtime
+    with CodecClient(socket_path=server["sock"]) as c:
+        srt = c.ping()["session_realtime_x"]
+    log = open(server["log"]).read()
+    assert f"sustained session pushes: {srt}x at 4 frames/push" in log
+    assert ("WARNING: sustained session pushes are below realtime" in log) \
+        == (srt < 1.0)

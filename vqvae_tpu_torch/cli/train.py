@@ -13,8 +13,10 @@ runs the kernels' plain versions.  At exit it prints the kernels'
 launch counts as one JSON line.  ``--decoder-kernel`` picks
 the decoder stack (``pallas`` recompute, ``pallas_sg`` saved gates,
 ``xla`` the plain layer loop), ``--impl`` the VQ search; any other
-field goes through ``--set``.  Not ported yet: the mesh flags (ROADMAP
-A8), ``--loader grain``, ``--tensorboard`` and ``--profile``.
+field goes through ``--set``.  ``--profile N`` traces N steps with
+``torch.profiler`` into ``<out>/profile`` (a Chrome trace).  Not ported
+yet: the mesh flags (ROADMAP A8), ``--loader grain`` and
+``--tensorboard``.
 """
 
 from __future__ import annotations
@@ -58,6 +60,8 @@ def main(argv=None) -> None:
                    help="host input pipeline (worker threads)")
     p.add_argument("--eval-every", type=int, default=None,
                    help="validation interval in steps (0: off)")
+    p.add_argument("--profile", type=int, default=None, metavar="N",
+                   help="torch.profiler-trace N steps to <out>/profile")
     add_device_arg(p)
     args = p.parse_args(argv)
 
@@ -66,7 +70,8 @@ def main(argv=None) -> None:
                             ("batch_size", args.batch_size),
                             ("out_dir", args.out),
                             ("loader", args.loader),
-                            ("eval_every", args.eval_every))
+                            ("eval_every", args.eval_every),
+                            ("profile_steps", args.profile))
           if v is not None}
     if tr:
         cfg = cfg.replace(train=dataclasses.replace(cfg.train, **tr))

@@ -15,7 +15,6 @@ Interval rates are read on the host clock after a
 from __future__ import annotations
 
 import os
-import time
 from typing import Optional
 
 import torch
@@ -33,6 +32,7 @@ from vqvae_tpu_torch.train.evaluator import Evaluator
 from vqvae_tpu_torch.train.metrics import MetricsLogger
 from vqvae_tpu_torch.train.state import TrainState, create_train_state
 from vqvae_tpu_torch.train.step import train_step
+from vqvae_tpu_torch.utils.profiling import StepTimer, profile_trace
 
 
 def _sync(device: torch.device) -> None:
@@ -69,27 +69,43 @@ def train(cfg: Config, dataset, out_dir: Optional[str] = None,
     logger = MetricsLogger(out_dir)
     weights = os.path.join(out_dir, "weights.npz")
     every = cfg.train.checkpoint_every
-    _sync(device)
-    t_last, step_last = time.perf_counter(), start
+    # trace steps [prof_at, prof_at + prof): from the tenth step after the
+    # start, as the JAX loop does, or earlier if the run ends before that
+    prof = cfg.train.profile_steps
+    prof_at = start + min(10, max(0, num_steps - start - prof))
+    prof_ctx = None
+    timer = StepTimer()
+    timed_to = start          # last step covered by a timer interval
     try:
         while state.step < num_steps:
+            if prof and state.step == prof_at:
+                prof_ctx = profile_trace(os.path.join(out_dir, "profile"),
+                                         device)
+                prof_ctx.__enter__()
             wav, spk = next(loader)
             metrics = train_step(state, torch.from_numpy(wav).to(device),
                                  torch.from_numpy(spk).to(device), cfg,
                                  impl=impl)
             step = state.step
+            if prof_ctx is not None and step == prof_at + prof:
+                prof_ctx.__exit__(None, None, None)
+                prof_ctx, prof = None, 0
             do_log = step % cfg.train.log_every == 0 or step == start + 1
             do_eval = (evaluator is not None
                        and step % cfg.train.eval_every == 0)
             if do_log or do_eval:
                 rec = {k: float(v) for k, v in metrics.items()}
                 _sync(device)
-                now = time.perf_counter()
-                rec["steps_per_sec"] = (step - step_last) / (now - t_last)
+                # closed before the evaluator runs, so validation never
+                # deflates the training rate
+                sps = timer.tick(step - timed_to)
+                timed_to = step
+                if sps is not None:
+                    rec["steps_per_sec"] = sps
                 if do_eval:
                     rec.update(evaluator(state.params))
+                    timer.reset()
                 logger.log(step, rec, echo)
-                t_last, step_last = time.perf_counter(), step
             if step % every == 0:
                 save_checkpoint(ckpt_dir, state, cfg.train.keep_checkpoints)
                 export_weights(weights, state.params)
@@ -97,6 +113,8 @@ def train(cfg: Config, dataset, out_dir: Optional[str] = None,
             save_checkpoint(ckpt_dir, state, cfg.train.keep_checkpoints)
             export_weights(weights, state.params)
     finally:
+        if prof_ctx is not None:
+            prof_ctx.__exit__(None, None, None)
         loader.close()
         logger.close()
     return state
