@@ -12,7 +12,8 @@ nonzero:
              available; TF32 off for the plain references.
 2. build   — compile the port's seven CUDA sources
              (``vqvae_tpu_torch/csrc/*.cu``), one nvcc each, side by side.
-3. kernel  — the decode kernel against its plain PyTorch version at
+3. kernel  — the decode kernel (one 16-block cluster per row) against
+             its plain PyTorch version at
              vctk-multi width (seeded random weights), B in {1, 3},
              T = 640, float32 and bfloat16: teacher-forced logits within
              1e-4 (f32) / 3e-2 (bf16) of max|logits|; greedy and sampled
@@ -36,7 +37,12 @@ nonzero:
              after a first push of 4096 steps (t0 > 0, as in a session),
              over the next 4096 steps, teacher-forced logits within 3e-2
              of max|logits| of the plain version and the sampled picks
-             against the plain pick.
+             against the plain pick.  It prints the kernel's cluster
+             size, shared memory per block, whether the weight slices are
+             resident, cudaOccupancyMaxActiveClusters, and what it costs
+             a 16-block cluster to agree once: a cluster barrier with
+             release/acquire, and the kernel's st.async + mbarrier
+             exchange.
 
 7. train-kernels — the training kernels (chunk forward; the save-gates,
              recompute and time-windowed backwards, the last at 2 and 4
@@ -467,6 +473,16 @@ def request_phase(dc, flag, device, sr):
         f"kernel {ms:.2f} ms ({1e3 * ms / T:.2f} us/step); over its first "
         f"{T10} steps kernel {ms10:.2f} ms, plain {plain10:.1f} ms "
         f"({1e3 * plain10 / T10:.1f} us/step)")
+    info = dc.cluster_info(flag, gp.wff.dtype)
+    barrier_ns = dc.cluster_agree_ns(device, 0)
+    exchange_ns = dc.cluster_agree_ns(device, 1)
+    check(info["max_active_clusters"] >= 1, f"no cluster fits: {info}")
+    say("request", t0, f"cluster of {info['cluster']} blocks a row, "
+        f"{info['smem_bytes']} B shared memory a block, weight slices "
+        f"{'resident' if info['resident'] else 'read through L1/L2'}, "
+        f"cudaOccupancyMaxActiveClusters {info['max_active_clusters']}; "
+        f"one cluster barrier (release/acquire) {barrier_ns:.1f} ns, one "
+        f"st.async + mbarrier exchange {exchange_ns:.1f} ns")
 
     t0 = time.monotonic()
     _, st1 = dc.generate_ids_resume(gp, flag, cond[:, :FIRST_PUSH], gcond, 1,

@@ -103,6 +103,63 @@ def test_kernel_rejects_bad_inputs(cuda):
         dc.generate_ids(gp._replace(wff=gp.wff.half()), cfg, cond, gcond)
 
 
+# ---- the cluster split: more rows than clusters fit, widths, the query ----
+
+
+@pytest.mark.parametrize("name", ["flagship4-bf16", "flagship4-f32"])
+def test_teacher_logits_kernel_vs_plain_nine_rows(cuda, name):
+    # B=9 launches nine 16-block clusters: more than the card runs at
+    # once, so some queue behind the others
+    cfg = CONFIGS[name]
+    gp, cond, gcond, ids = _setup(cfg, 9, 160, cuda)
+    got = dc.teacher_logits(gp, cfg, ids, cond, gcond)
+    want = dc._plain(gp, cfg, dc.TEACHER, cond, gcond, 0, 1.0,
+                     dc.init_decode_state(cfg, 9, gp.wff.dtype, cuda),
+                     ids)[0]
+    tol = 3e-2 if cfg.compute_dtype == "bfloat16" else 1e-4
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+@pytest.mark.parametrize("greedy", [True, False])
+def test_kernel_resume_nine_rows_equals_one_call(cuda, greedy):
+    cfg = CONFIGS["flagship4-bf16"]
+    gp, cond, gcond, _ = _setup(cfg, 9, 640, cuda)
+    st0 = dc.init_decode_state(cfg, 9, gp.wff.dtype, cuda)
+    one, st1 = dc.generate_ids_resume(gp, cfg, cond, gcond, 11, 0.8, st0,
+                                      greedy)
+    st, pieces, i = st0, [], 0
+    for w in (1, 63, 576):
+        x, st = dc.generate_ids_resume(gp, cfg, cond[:, i:i + w], gcond, 11,
+                                       0.8, st, greedy)
+        pieces.append(x)
+        i += w
+    assert torch.equal(torch.cat(pieces, 1), one)
+    assert st.t0 == st1.t0 == 640
+    for a, b in zip(st[1:], st1[1:]):
+        assert torch.equal(a, b)
+
+
+def test_kernel_rejects_widths_the_cluster_does_not_split(cuda):
+    cfg = dataclasses.replace(CONFIGS["tiny-f32"], residual_channels=40)
+    gp, cond, gcond, ids = _setup(cfg, 2, 10, cuda)
+    before = dc.launches
+    with pytest.raises(ValueError, match="multiple of 16"):
+        dc.generate_ids(gp, cfg, cond, gcond)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        dc.teacher_logits(gp, cfg, ids, cond, gcond)
+    assert dc.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cluster_info_at_the_flagship_width(cuda, dtype):
+    info = dc.cluster_info(get_config("vctk-multi").model, dtype)
+    assert info["cluster"] == 16
+    # the bf16 slices are resident in shared memory; float32 reads L1/L2
+    assert info["resident"] == (dtype == torch.bfloat16)
+    assert 0 < info["smem_bytes"] <= 232448
+    assert info["max_active_clusters"] >= 1
+
+
 # ---- the training kernels (csrc/wavenet_train.cu, csrc/head_ce.cu) ----
 
 from vqvae_tpu_torch.kernels import head_ce_cuda as hc          # noqa: E402

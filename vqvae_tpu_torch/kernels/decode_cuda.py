@@ -15,6 +15,13 @@ noise written in torch integer ops.  Tensors on a CUDA device launch
 the kernel, or raise; nothing falls back.  ``launches`` counts kernel
 launches.
 
+The kernel decodes each batch row on one cluster of 16 thread blocks
+(``csrc/decode.cu``), so it takes R, S and mu that are multiples of 16
+(R, d <= 128, d even; S, mu <= 512; at least 2 layers); other widths
+raise, as does a card that cannot schedule a 16-block cluster.
+``cluster_info`` reports the launch's shape and ``cluster_agree_ns`` what
+it costs the cluster to agree once on the card.
+
 Sampling: the noise of class k, row b, absolute step t is word
 ``k % 4`` of Philox4x32-10 with key ``(seed, 0)`` and counter
 ``(k // 4, b, t_lo, t_hi)``, turned into ``u = ((w >> 8) + 0.5)·2⁻²⁴``
@@ -161,6 +168,15 @@ def _plain(gp: GenParams, cfg: ModelConfig, mode: int, cond, gcond,
 # ---------------------------------------------------------------------------
 
 _lib = None
+CLUSTER = 16   # thread blocks per batch row
+# vqvae_decode's own error codes (cudaError_t codes are positive)
+_ERRORS = {
+    -1: "R, S and mu must be multiples of 16 (R, d <= 128, d even; "
+        "S, mu <= 512; at least 2 layers)",
+    -2: "this card cannot schedule one 16-block cluster of the kernel "
+        "(cudaOccupancyMaxActiveClusters is 0)",
+    -3: "the weight slices do not fit in a block's shared memory",
+}
 
 
 def _library():
@@ -173,8 +189,67 @@ def _library():
             + [ctypes.POINTER(i), ctypes.c_longlong, ctypes.c_uint,
                ctypes.c_float, p])
         lib.vqvae_decode.restype = i
+        lib.vqvae_decode_info.argtypes = [i] * 7 + [ctypes.POINTER(i)]
+        lib.vqvae_decode_info.restype = i
+        lib.vqvae_cluster_exchange_probe.argtypes = [i, i, p]
+        lib.vqvae_cluster_exchange_probe.restype = i
         _lib = lib
     return _lib
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} failed: "
+                           + _ERRORS.get(err, f"CUDA error {err}"))
+
+
+def check_widths(cfg: ModelConfig) -> None:
+    """Raise ValueError, with the reason, for widths the cluster split
+    does not take."""
+    R, S, d, mu = (cfg.residual_channels, cfg.skip_channels, cfg.d, cfg.mu)
+    for name, v in (("R", R), ("S", S), ("mu", mu)):
+        if v % CLUSTER:
+            raise ValueError(
+                f"the decode kernel splits each row over a {CLUSTER}-block "
+                f"cluster: {name}={v} is not a multiple of {CLUSTER}")
+    if (R > 128 or d > 128 or d % 2 or S > 512 or mu > 512
+            or cfg.n_layers_total < 2):
+        raise ValueError(f"the decode kernel takes R, d <= 128 (d even), "
+                         f"S, mu <= 512 and at least 2 layers, got R={R} "
+                         f"d={d} S={S} mu={mu} L={cfg.n_layers_total}")
+
+
+def cluster_info(cfg: ModelConfig, dtype=torch.bfloat16) -> dict:
+    """The kernel's launch at these widths: blocks per row, shared
+    memory per block, whether the weight slices are resident in shared
+    memory, and ``cudaOccupancyMaxActiveClusters`` on the current card."""
+    check_widths(cfg)
+    out = (ctypes.c_int * 4)()
+    _raise_on(_library().vqvae_decode_info(
+        _CDTYPE[dtype], cfg.residual_channels, cfg.skip_channels, cfg.d,
+        cfg.mu, cfg.n_layers_total, sum(cfg.dilations), out),
+        "decode kernel query")
+    return {"cluster": out[0], "smem_bytes": out[1],
+            "resident": bool(out[2]), "max_active_clusters": out[3]}
+
+
+def cluster_agree_ns(device, mode: int, iters: int = 100_000) -> float:
+    """Nanoseconds for one 16-block cluster to agree once: ``mode`` 0 by
+    a cluster barrier with release/acquire (``barrier.cluster``), 1 by
+    the kernel's exchange (``st.async`` into every block, then a wait on
+    the receiver's mbarrier).  Timed by CUDA events over ``iters``."""
+    lib = _library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _raise_on(lib.vqvae_cluster_exchange_probe(1000, mode, stream),
+                  "cluster probe")
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        _raise_on(lib.vqvae_cluster_exchange_probe(iters, mode, stream),
+                  "cluster probe")
+        e1.record()
+        torch.cuda.synchronize(device)
+    return 1e6 * e0.elapsed_time(e1) / iters
 
 
 def _ptr(x):
@@ -190,6 +265,7 @@ def _launch(gp: GenParams, cfg: ModelConfig, mode: int, cond, gcond,
     cdt = gp.wff.dtype
     if cdt not in _CDTYPE:
         raise TypeError(f"decode kernel has no {cdt} instance")
+    check_widths(cfg)
     dev = cond.device
     cond = cond.to(cdt).contiguous()
     gcond = gcond.to(cdt).contiguous()
@@ -237,8 +313,7 @@ def _launch(gp: GenParams, cfg: ModelConfig, mode: int, cond, gcond,
                 ids_in, ids_out, logits_out, bufs, pe0, x_last)),
             B, T, R, S, d, mu, L, dils, state.t0, seed & _MASK,
             float(temperature), stream)
-    if err != 0:
-        raise RuntimeError(f"decode kernel launch failed: CUDA error {err}")
+    _raise_on(err, "decode kernel launch")
     launches += 1
     if mode == TEACHER:
         return out, None

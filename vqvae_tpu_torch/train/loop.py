@@ -9,7 +9,9 @@ the whole train state under ``<out>/checkpoints/`` and exports the
 weights to ``<out>/weights.npz`` at ``checkpoint_every`` and at the end.
 ``resume`` continues from the newest checkpoint, data stream included.
 Interval rates are read on the host clock after a
-``torch.cuda.synchronize()``.  Meshes wait for ROADMAP A8.
+``torch.cuda.synchronize()``.  Meshes wait for ROADMAP A8 and
+TensorBoard for A5: a run that asks for either is refused before it
+writes anything.
 """
 
 from __future__ import annotations
@@ -53,6 +55,17 @@ def train(cfg: Config, dataset, out_dir: Optional[str] = None,
     if cfg.train.loader != "threads":
         raise ValueError(f"loader {cfg.train.loader!r} is not ported "
                          "(the port's loader is 'threads')")
+    # settings the one-device trainer would otherwise ignore in silence
+    if cfg.train.tensorboard:
+        raise ValueError("train.tensorboard=True is not ported (the port "
+                         "logs to log.jsonl only)")
+    for name in ("mesh_model", "mesh_seq", "mesh_slices"):
+        if getattr(cfg.train, name) != 1:
+            raise ValueError(f"train.{name}={getattr(cfg.train, name)} is "
+                             "not ported (the port trains on one device)")
+    if cfg.train.mesh_data > 1:
+        raise ValueError(f"train.mesh_data={cfg.train.mesh_data} is not "
+                         "ported (the port trains on one device)")
     ckpt_dir = os.path.join(out_dir, "checkpoints")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "config.json"), "w") as f:
