@@ -70,7 +70,11 @@ nonzero:
              (embed and acc chunks, head + CE; bfloat16, 3e-2 of max), so
              the split-K partitioning the path runs is the one checked;
              each kernel's time (CUDA events) beside its plain version's
-             and its bound, and the step
+             and its bound; a second call of each chunk kernel bit-equal
+             to the first; the backwards' weight-gradient product alone
+             at the dwff shape (h(t - dil) [B*T, 64] against du [B*T,
+             128], bf16) beside torch.matmul(A.T, B), its library
+             yardstick; and the step
              with the plain decoder and head (decoder_kernel=xla,
              head_kernel=xla).
 10. train-cli-vctk — a synthetic VCTK-layout tree under build/ (4
@@ -1002,14 +1006,24 @@ def train_time_phase(cfg_all, device, errs):
     for mode in (wt.EMBED, wt.ACC):
         args, cots = chunk_inputs(mode, torch.bfloat16, device, B, T, mc)
         fp = chunk_plain(args)
-        rf = compare("chunk_fwd", wt.fwd_kernel(*args), fp, 3e-2, errs)
+        fk = wt.fwd_kernel(*args)
+        rf = compare("chunk_fwd", fk, fp, 3e-2, errs)
         gall = fp[2]
         del fp
-        rb = compare("chunk_bwd", wt.bwd_kernel(*args[:-1], gall, *cots),
-                     chunk_plain(args, cots, gall), 3e-2, errs)
-        say("train-time", t0, f"chunk {'embed' if mode == wt.EMBED else 'acc'}"
-            f" bfloat16 B={B} T={T}: forward max rel err {rf:.3g}, backward "
-            f"{rb:.3g} <= 0.03")
+        bk = wt.bwd_kernel(*args[:-1], gall, *cots)
+        rb = compare("chunk_bwd", bk, chunk_plain(args, cots, gall), 3e-2,
+                     errs)
+        # a second call on the same inputs gives the same bits
+        same = all(torch.equal(a, b_) for a, b_ in
+                   zip(fk, wt.fwd_kernel(*args)))
+        same = same and all(a is None or torch.equal(a, b_) for a, b_ in
+                            zip(bk, wt.bwd_kernel(*args[:-1], gall, *cots)))
+        mname = "embed" if mode == wt.EMBED else "acc"
+        check(same, f"chunk {mname} B={B}: a second call differs")
+        del fk, bk
+        say("train-time", t0, f"chunk {mname} bfloat16 B={B} T={T}: forward "
+            f"max rel err {rf:.3g}, backward {rb:.3g} <= 0.03; a second "
+            f"call of each is bit-equal")
         ms_f = cuda_ms(lambda: wt.fwd_kernel(*args))
         ms_b = cuda_ms(lambda: wt.bwd_kernel(*args[:-1], gall, *cots))
         pf = cuda_ms(lambda: chunk_plain(args), reps=1)
@@ -1034,6 +1048,33 @@ def train_time_phase(cfg_all, device, errs):
             f"{n_chunks - 1} averaged): kernel {ms_:.2f} ms, plain "
             f"{plain:.2f} ms, bound {bms:.3f} ms ({bby}); embed "
             f"{by_mode[wt.EMBED][0]:.2f} ms, acc {by_mode[wt.ACC][0]:.2f} ms")
+    # the backwards' weight-gradient product alone, at the dwff shape:
+    # h(t - dil) [B*T, R] against du [B*T, 2R], beside one matmul
+    gen = torch.Generator().manual_seed(5)
+    dil = mc.dilations[wt.MAX_CHUNK_LAYERS - 1]
+    a = torch.randn(B * T, R, generator=gen).to(device, torch.bfloat16)
+    b = (torch.randn(B * T, 2 * R, generator=gen) * 0.01).to(
+        device, torch.bfloat16)
+    want = wt.atb_plain(a, b, T, dil)
+    before = wt.launches_atb
+    got = wt.atb_kernel(a, b, T, dil)
+    check(wt.launches_atb == before + 1, "atb_kernel did not launch")
+    ratb = compare("atb", [got], [want], 1e-4, errs)
+    ash = wt._shift_right(a.reshape(B, T, R), dil).reshape(B * T, R)
+    ms_ = cuda_ms(lambda: wt.atb_kernel(a, b, T, dil), reps=10)
+    lms = cuda_ms(lambda: torch.matmul(ash.T, b), reps=10)
+    pms = cuda_ms(lambda: wt.atb_plain(a, b, T, dil), reps=3)
+    bms, bby = bound(2 * B * T * R * 2 * R,
+                     2 * B * T * (R + 2 * R) + 4 * R * 2 * R)
+    out["atb"] = dict(ms=ms_, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                      library_ms=lms)
+    say("train-time", t0, f"weight-gradient product alone (dwff: h(t-{dil})"
+        f" [{B * T}, {R}]^T du [{B * T}, {2 * R}], bf16): kernel "
+        f"{ms_:.3f} ms, torch.matmul(A.T, B) {lms:.3f} ms, plain (float32) "
+        f"{pms:.3f} ms, bound {bms:.4f} ms ({bby}); max rel err {ratb:.3g}"
+        f" <= 1e-4")
+    del a, b, ash, want, got
+    torch.cuda.empty_cache()
     args = head_inputs(torch.bfloat16, device, B * T, mc)
     g = torch.tensor(1.0, device=device)
     rf = compare("head_ce_fwd", [hc.fwd_kernel(*args)], [hc.fwd_plain(*args)],

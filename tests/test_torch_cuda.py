@@ -254,6 +254,74 @@ def test_chunk_kernel_rejects_bad_inputs(cuda):
         wt.fwd_kernel(*bad)
 
 
+# ---- the chunk kernels at a wide shape: many persistent tiles, split-K ----
+
+WIDE_DILS = tuple(2 ** i for i in range(10))      # 1 .. 512
+
+
+def _wide_case(kind, cdt, R, cuda):
+    """(kernel outputs, plain outputs) of one chunk kernel at B=4 and a
+    length ragged against every row tile (T=3001; the windowed backward
+    takes T=3000 in 3 windows of 1000), the 10 dilations 1..512."""
+    T = 3000 if kind == "windowed" else 3001
+    args, cots = _chunk_inputs(wt.ACC, cdt, cuda, B=4, T=T, R=R,
+                               dils=WIDE_DILS, seed=R)
+    dils, _, x, _, _, cond, gc, wff, vc, wr, br, ws, tail = args
+    w = (cond, gc, wff, vc, wr, br, ws)
+    if kind == "forward":
+        return (wt.fwd_kernel(*args),
+                wt.fwd_plain(dils, x, *w, tail, True))
+    if kind == "save-gates":
+        gall = wt.fwd_plain(dils, x, *w, tail, True)[2]
+        return (wt.bwd_kernel(*args[:-1], gall, *cots),
+                wt.bwd_plain(dils, x, *w, gall, *cots))
+    if kind == "recompute":
+        return (wt.bwd_rec_kernel(*args[:-1], *cots),
+                wt.bwd_rec_plain(dils, x, *w, *cots))
+    return (wt.bwd_win_kernel(dils, 3, x, *w, *cots),
+            wt.bwd_win_plain(dils, 3, x, *w, *cots))
+
+
+CHUNK_KINDS = ["forward", "save-gates", "recompute", "windowed"]
+
+
+@pytest.mark.parametrize("kind", CHUNK_KINDS)
+@pytest.mark.parametrize("R", [64, 32])
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_chunk_kernels_wide_vs_plain(cuda, kind, R, cdt):
+    """Outputs and every gradient within 1e-4 (float32) / 3e-2 (bf16)
+    of max of the plain version, at a shape that spreads the products
+    over many split-K blocks and each persistent block over many
+    tiles."""
+    got, want = _wide_case(kind, cdt, R, cuda)
+    for a, b in zip(got, want):
+        if b is not None:
+            assert _rel_err(a, b) <= TRAIN_TOL[cdt]
+
+
+@pytest.mark.parametrize("kind", CHUNK_KINDS)
+def test_chunk_kernels_repeat_bit_equal(cuda, kind):
+    """Two calls on the same inputs give bit-equal outputs and
+    gradients: every cross-block sum is taken in a fixed order."""
+    one, _ = _wide_case(kind, torch.bfloat16, 64, cuda)
+    two, _ = _wide_case(kind, torch.bfloat16, 64, cuda)
+    for a, b in zip(one, two):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_chunk_forward_gates_do_not_change_h_or_skips(cuda, cdt):
+    """fwd_kernel with and without save_gates: bit-equal h and skips."""
+    args, _ = _chunk_inputs(wt.EMBED, cdt, cuda, B=4, T=3001,
+                            dils=WIDE_DILS)
+    h1, s1, g1 = wt.fwd_kernel(*args, save_gates=True)
+    h2, s2, g2 = wt.fwd_kernel(*args, save_gates=False)
+    assert g1 is not None and g2 is None
+    assert torch.equal(h1, h2) and torch.equal(s1, s2)
+
+
 # ---- the recompute and windowed backwards and the VQ search (csrc/vq.cu) --
 
 from vqvae_tpu_torch.kernels import vq_cuda                     # noqa: E402

@@ -146,3 +146,23 @@ def test_decoder_stack_chains_chunks_like_jax():
                            ids=torch.from_numpy(ids))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("shift", [0, 3])
+def test_weight_gradient_product_plain(shift):
+    """``atb_kernel`` on CPU tensors (its plain version): the backwards'
+    weight-gradient product a'^T b, a' shifted down by ``shift`` rows
+    inside each batch row as dwff takes h(t - dil), equals the float64
+    product of the rows it names."""
+    rng = np.random.default_rng(shift)
+    B, T, M, K = 3, 20, 16, 24
+    a = torch.from_numpy(rng.standard_normal((B * T, M))).bfloat16()
+    b = torch.from_numpy(rng.standard_normal((B * T, K))).bfloat16()
+    a64, b64 = a.double().numpy(), b.double().numpy()
+    want = np.zeros((M, K))
+    for row in range(B * T):
+        if row % T >= shift:
+            want += np.outer(a64[row - shift], b64[row])
+    got = wt.atb_kernel(a, b, T, shift)
+    assert got.dtype == torch.float32 and got.shape == (M, K)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)

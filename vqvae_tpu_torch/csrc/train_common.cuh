@@ -12,6 +12,11 @@
 // (32 consecutive columns per load, coalesced), then does RT*CT FMAs.
 // The weights are read from global memory through L1/L2.
 //
+// Tensor-core products (bf16): mma.sync m16n8k16 on fragments that
+// ldmatrix reads from shared memory (warp_mm), tiles arriving by 16-byte
+// cp.async; the weight-gradient product (atb_part_tc) streams its rows
+// through a 3-stage ring.
+//
 // Cross-block sums are deterministic: every block writes its partial
 // sum into its own slab, and a second kernel adds the slabs in a fixed
 // order (reduce_parts, seg_reduce).  No atomics.
@@ -56,6 +61,112 @@ template <> __device__ __forceinline__ bf16 fromf<bf16>(float x) {
 // x rounded to T and back to float
 template <typename T> __device__ __forceinline__ float rnd(float x) {
   return tof(fromf<T>(x));
+}
+
+// ---- tensor-core and async-copy primitives (PTX) ----
+// The bf16 tile products below run on mma.sync m16n8k16 (bf16 inputs,
+// float32 accumulators) from fragments that ldmatrix reads out of shared
+// memory; tiles reach shared memory by 16-byte cp.async copies.
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes from global src to shared dst, asynchronously; zero-filled
+// (src not read) when !valid
+__device__ __forceinline__ void async_copy16(void* dst, const void* src,
+                                             bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N> __device__ __forceinline__ void async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// four 8x8 bf16 matrices; lane l gives the address of row l % 8 of
+// matrix l / 8, and receives row l / 4, columns 2(l % 4) .. +1 of each
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// the same, each matrix transposed: lane l receives column l / 4, rows
+// 2(l % 4) .. +1
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d[16x8] += a[16x16] b[16x8]: bf16 products, exact, summed in float32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// ---- end of PTX primitives ----
+
+// Warp-level tile products on those primitives.  Shared-memory tiles are
+// bf16 rows padded by SP elements (16 bytes), so the 8 row addresses of
+// an ldmatrix fall in 8 different bank groups.  Accumulator layout
+// (mma's): lane l holds acc[j][q] = C[r][c] with r = (l / 4) + 8 (q / 2),
+// c = 8 j + 2 (l % 4) + (q % 2).
+constexpr int SP = 8;
+
+// acc[j] += A[16 rows][K] B[K][n0 + 8j .. +8) for j < NJ (NJ even);
+// A row-major (row stride lda, the warp's first row at A), B row-major
+// [K][ldb]; K a multiple of 16
+template <int NJ>
+__device__ __forceinline__ void warp_mm(float (&acc)[NJ][4], const bf16* A,
+                                        int lda, const bf16* B, int ldb,
+                                        int K, int n0) {
+  const int lane = threadIdx.x & 31;
+  const bf16* ap = A + (lane & 15) * lda + ((lane >> 4) << 3);
+  const bf16* bp = B + (lane & 15) * ldb + n0 + ((lane >> 4) << 3);
+  for (int k = 0; k < K; k += 16) {
+    uint32_t a[4];
+    ldsm_x4(a, ap + k);
+#pragma unroll
+    for (int j = 0; j < NJ; j += 2) {
+      uint32_t b[4];
+      ldsm_x4_t(b, bp + (size_t)k * ldb + 8 * j);
+      mma_bf16(acc[j], a, b[0], b[1]);
+      mma_bf16(acc[j + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+template <int NJ>
+__device__ __forceinline__ void zero_acc(float (&acc)[NJ][4]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+}
+
+// copy a [rows][C] bf16 global matrix (row stride ld) into shared memory
+// [rows][C + SP] by 16-byte async copies of all nthr threads (C % 8 == 0)
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
+                                           int rows, int C, int ld,
+                                           int nthr) {
+  const int cpr = C / 8;
+  for (int e = threadIdx.x; e < rows * cpr; e += nthr) {
+    const int r = e / cpr, c = (e - r * cpr) * 8;
+    async_copy16(dst + r * (C + SP) + c, src + (size_t)r * ld + c, true);
+  }
 }
 
 // acc[i][j] += sum_k X[(rg + RG*i)*ldx + k] * W[k*ldw + cg + 32*j]
@@ -240,76 +351,153 @@ __global__ void atb_part(int rows, RowMap map, const TA* __restrict__ A,
   }
 }
 
-// The same product on the tensor cores, for a bfloat16 compute dtype:
-// A' and B' are staged in shared memory as bf16 (B' rounded there, as
-// rnd<bf16> does), and each of the 8 warps multiplies a 16x32 strip of
-// the 64x64 tile with 16x16x16 bf16 fragments into float32 accumulators.
-// Every product of two bf16 values is exact; only the float32 sum order
-// differs from atb_part.
+// The same product on the tensor cores, for a bfloat16 compute dtype.
+// A block of ATC_NT = 128 threads owns a 64x64 tile of one split; its 4
+// warps (2 x 2) each own a 32x32 quarter.  The split's rows stream
+// through a ring of ASTAGES stages of KS rows, A' [KS][64] and B'
+// [KS][64] in bf16: bf16 operands arrive by 16-byte cp.async (rows that
+// the causal shift or the row map leaves out are zero-filled), float32
+// ones (the encoder's cotangents) are read 16 bytes at a time and rounded
+// to bf16 as they are stored, where rnd<bf16> rounds them in atb_part.
+// The stage that has landed feeds ldmatrix + mma.sync while the next two
+// load; ReLU applies to A's fragments.  Every product of two bf16 values
+// is exact; only the float32 sum order differs from atb_part.
+constexpr int KS = 64;          // rows per stage
+constexpr int ASTAGES = 3;
+constexpr int ATC_NT = 128;
+constexpr int ALD = AT + SP;    // staged row stride (elements)
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
+}
+
+// both bf16 halves of x with the sign bit set become 0
+__device__ __forceinline__ uint32_t relu_bf16x2(uint32_t x) {
+  return x & ~(((x >> 15) & 0x00010001u) * 0xFFFFu);
+}
+
+// src[0 .. n) (n <= 8, the rest 0) as 8 bf16 at dst (16-byte aligned);
+// vec: src is 16-byte aligned and n is 0 or 8.  With n == 0, src is any
+// valid address and is not read.
+template <typename TS>
+__device__ __forceinline__ void stage8(bf16* dst, const TS* src, int n,
+                                       bool vec) {
+  if constexpr (std::is_same<TS, bf16>::value) {
+    if (vec) {
+      async_copy16(dst, src, n > 0);
+      return;
+    }
+  } else {
+    if (vec && n == 8) {
+      const float4 x = reinterpret_cast<const float4*>(src)[0];
+      const float4 y = reinterpret_cast<const float4*>(src)[1];
+      *reinterpret_cast<uint4*>(dst) =
+          make_uint4(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w),
+                     pack_bf16(y.x, y.y), pack_bf16(y.z, y.w));
+      return;
+    }
+  }
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = pack_bf16(2 * i < n ? tof(src[2 * i]) : 0.f,
+                     2 * i + 1 < n ? tof(src[2 * i + 1]) : 0.f);
+  *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
 template <typename TA, typename TB, bool MAP>
-__global__ void atb_part_tc(int rows, RowMap map, const TA* __restrict__ A,
-                            int lda, int M, int shift, int relu,
-                            const TB* __restrict__ B, int ldb, int N,
-                            int chunk, float* __restrict__ part) {
-  using namespace nvcuda;
-  bf16* As = reinterpret_cast<bf16*>(smem);     // [AK][AT]
-  bf16* Bs = As + AK * AT;                      // [AK][AT]
-  float* Cs = smem + AK * AT;                   // [AT][AT], after As, Bs
+__global__ void __launch_bounds__(ATC_NT)
+    atb_part_tc(int rows, RowMap map, const TA* __restrict__ A, int lda,
+                int M, int shift, int relu, const TB* __restrict__ B,
+                int ldb, int N, int chunk, int avec, int bvec,
+                float* __restrict__ part) {
+  bf16* ring = reinterpret_cast<bf16*>(smem);   // [ASTAGES][2][KS][ALD]
   const int m0 = blockIdx.x * AT, n0 = blockIdx.y * AT, s = blockIdx.z;
   const int r_begin = s * chunk;
   const int r_end = min(rows, r_begin + chunk);
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;      // 4 x 2 warps
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
-  for (int rb = r_begin; rb < r_end; rb += AK) {
-    for (int e = tid; e < AK * AT; e += NT) {
-      const int k = e / AT, m = e % AT, row = rb + k;
-      float a = 0.f, b = 0.f;
+  const int nst = (r_end - r_begin + KS - 1) / KS;
+  const int ma = min(AT, M - m0), nb = min(AT, N - n0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 1, wn = warp >> 1;
+
+  auto load = [&](int st) {
+    bf16* As = ring + (size_t)(st % ASTAGES) * 2 * KS * ALD;
+    bf16* Bs = As + KS * ALD;
+    const int rb = r_begin + st * KS;
+    for (int e = tid; e < KS * (AT / 8); e += ATC_NT) {
+      const int k = e / (AT / 8), c = (e % (AT / 8)) * 8, row = rb + k;
+      long long ar = -1, br = -1;
       if (row < r_end) {
         if constexpr (MAP) {
-          const long long ar = map.a_row(row, shift);
-          if (m0 + m < M && ar >= 0) {
-            a = tof(A[(size_t)ar * lda + m0 + m]);
-            if (relu) a = fmaxf(a, 0.f);
-          }
-          if (n0 + m < N) b = tof(B[(size_t)map.b_row(row) * ldb + n0 + m]);
+          ar = map.a_row(row, shift);
+          br = map.b_row(row);
         } else {
-          if (m0 + m < M && (shift == 0 || (row % map.seg) >= shift)) {
-            a = tof(A[(size_t)(row - shift) * lda + m0 + m]);
-            if (relu) a = fmaxf(a, 0.f);
-          }
-          if (n0 + m < N) b = tof(B[(size_t)row * ldb + n0 + m]);
+          if (shift == 0 || row % map.seg >= shift) ar = row - shift;
+          br = row;
         }
       }
-      As[e] = __float2bfloat16(a);
-      Bs[e] = __float2bfloat16(b);
+      const int na = ar >= 0 ? max(0, min(8, ma - c)) : 0;
+      const int nn = br >= 0 ? max(0, min(8, nb - c)) : 0;
+      stage8(As + k * ALD + c, na > 0 ? A + (size_t)ar * lda + m0 + c : A,
+             na, avec);
+      stage8(Bs + k * ALD + c, nn > 0 ? B + (size_t)br * ldb + n0 + c : B,
+             nn, bvec);
     }
-    __syncthreads();
+  };
+
+  float acc[2][4][4];
 #pragma unroll
-    for (int kk = 0; kk < AK; kk += 16) {
-      // A'^T tile: element (m, k) sits at As[k*AT + m], i.e. column-major
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
-      wmma::load_matrix_sync(fa, As + kk * AT + wm * 16, AT);
+  for (int i = 0; i < 2; ++i) zero_acc(acc[i]);
+  if (nst > 0) load(0);
+  async_commit();
+  if (nst > 1) load(1);
+  async_commit();
+  for (int st = 0; st < nst; ++st) {
+    async_wait<1>();   // stage st has landed (st + 1 may be in flight)
+    __syncthreads();   // ... for every thread; stage st - 1 is consumed
+    if (st + 2 < nst) load(st + 2);
+    async_commit();
+    const bf16* As = ring + (size_t)(st % ASTAGES) * 2 * KS * ALD;
+    const bf16* Bs = As + KS * ALD;
 #pragma unroll
-      for (int f = 0; f < 2; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, Bs + kk * AT + wn * 32 + f * 16, AT);
-        wmma::mma_sync(acc[f], fa, fb, acc[f]);
+    for (int kk = 0; kk < KS; kk += 16) {
+      // A'^T fragments: element (m, k) sits at As[k][m], so transposed
+      uint32_t a[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        ldsm_x4_t(a[i], As + (kk + (lane & 7) + ((lane >> 4) << 3)) * ALD +
+                            wm * 32 + i * 16 + (((lane >> 3) & 1) << 3));
+        if (relu)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) a[i][q] = relu_bf16x2(a[i][q]);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        uint32_t b[4];
+        ldsm_x4_t(b, Bs + (kk + (lane & 15)) * ALD + wn * 32 + jj * 16 +
+                         ((lane >> 4) << 3));
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mma_bf16(acc[i][2 * jj], a[i], b[0], b[1]);
+          mma_bf16(acc[i][2 * jj + 1], a[i], b[2], b[3]);
+        }
       }
     }
-    __syncthreads();
   }
 #pragma unroll
-  for (int f = 0; f < 2; ++f)
-    wmma::store_matrix_sync(Cs + (wm * 16) * AT + wn * 32 + f * 16, acc[f],
-                            AT, wmma::mem_row_major);
-  __syncthreads();
-  for (int e = tid; e < AT * AT; e += NT) {
-    const int m = m0 + e / AT, n = n0 + e % AT;
-    if (m < M && n < N) part[((size_t)s * M + m) * N + n] = Cs[e];
-  }
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm * 32 + i * 16 + (lane >> 2) + 8 * h;
+        const int n = n0 + wn * 32 + 8 * j + 2 * (lane & 3);
+        if (m >= M) continue;
+        float* o = part + ((size_t)s * M + m) * N + n;
+        if (n < N) o[0] = acc[i][j][2 * h];
+        if (n + 1 < N) o[1] = acc[i][j][2 * h + 1];
+      }
 }
 
 // out[e] (+)= sum over p of part[p][e], p = 0, 1, ... in order; with
@@ -366,6 +554,36 @@ inline cudaError_t smem_opt_in(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// streaming multiprocessors of the current device (persistent grids and
+// the split-K policy of the tensor-core products)
+inline int num_sms() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0, v = 0;
+    if (cudaGetDevice(&dev) == cudaSuccess &&
+        cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) ==
+            cudaSuccess && v > 0)
+      n = v;
+    else
+      n = 132;
+  }
+  return n;
+}
+
+// whether a [rows, ld] operand read `width` columns at a time can be
+// staged in 16-byte pieces: aligned base and stride, width % 8 == 0
+template <typename T>
+inline int vec_ok(const T* p, int ld, int width) {
+  return (reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
+          (ld * sizeof(T)) % 16 == 0 && width % 8 == 0) ? 1 : 0;
+}
+
+#define VQT_TRY_CUDA(x)                            \
+  do {                                             \
+    cudaError_t _e = (x);                          \
+    if (_e != cudaSuccess) return (int)_e;         \
+  } while (0)
+
 // out[M, N] (+)= A'^T B' over `rows` rows (see atb_part), through the
 // scratch `part` of part_cap floats; returns 0 or a CUDA error, or -1 if
 // the scratch is too small.  The row map defaults to the identity over
@@ -376,9 +594,11 @@ inline int atb(int rows, int seg, const TA* A, int lda, int M, int shift,
                long long part_cap, cudaStream_t st, int accumulate = 0,
                RowMap map = RowMap{0, 0, 0, 0, 0}) {
   if (map.seg == 0) map = RowMap{seg, seg, 0, seg, 0};
+  constexpr bool tc = std::is_same<TC, bf16>::value;
   const int tiles = cdiv(M, AT) * cdiv(N, AT);
-  int nsplit = cdiv(4 * 132, tiles);             // ~4 blocks per SM
-  nsplit = std::max(1, std::min(nsplit, cdiv(rows, 4 * AK)));
+  // ~4 blocks per SM, each split at least 4 stages long
+  int nsplit = cdiv(4 * (tc ? num_sms() : 132), tiles);
+  nsplit = std::max(1, std::min(nsplit, cdiv(rows, 4 * (tc ? KS : AK))));
   const long long fit = part_cap / ((long long)M * N);
   if (fit < 1) return -1;
   nsplit = (int)std::min((long long)nsplit, fit);
@@ -386,12 +606,12 @@ inline int atb(int rows, int seg, const TA* A, int lda, int M, int shift,
   nsplit = cdiv(rows, chunk);
   dim3 grid(cdiv(M, AT), cdiv(N, AT), nsplit);
   const bool ident = map.identity();
-  if constexpr (std::is_same<TC, bf16>::value) {
-    // As and Bs (bf16) fill the first AK*AT floats, Cs follows
-    const size_t sm = (AK * AT + AT * AT) * sizeof(float);
+  if constexpr (tc) {
+    const size_t sm = (size_t)ASTAGES * 2 * KS * ALD * sizeof(bf16);
     auto kern = ident ? atb_part_tc<TA, TB, false> : atb_part_tc<TA, TB, true>;
-    KLAUNCH(kern, grid, NT, sm, st, rows, map, A, lda, M, shift, relu, B,
-            ldb, N, chunk, part);
+    VQT_TRY_CUDA(smem_opt_in(kern, sm));
+    KLAUNCH(kern, grid, ATC_NT, sm, st, rows, map, A, lda, M, shift, relu, B,
+            ldb, N, chunk, vec_ok(A, lda, M), vec_ok(B, ldb, N), part);
   } else {
     const size_t sm = 2 * AK * AT * sizeof(float);
     auto kern = ident ? atb_part<TA, TB, TC, false> : atb_part<TA, TB, TC, true>;

@@ -44,7 +44,8 @@ dtypes, as ``_chunk_grads`` casts them.
 versions, CUDA tensors launch the kernels or raise.  Each kernel call
 adds one to its count: ``launches_fwd`` (chunk forward),
 ``launches_bwd`` (save-gates backward), ``launches_bwd_rec`` (recompute
-backward), ``launches_bwd_win`` (windowed backward).
+backward), ``launches_bwd_win`` (windowed backward), ``launches_atb``
+(the backwards' weight-gradient product alone, ``atb``).
 """
 
 from __future__ import annotations
@@ -64,6 +65,7 @@ launches_fwd = 0       # chunk-forward kernel calls in this process
 launches_bwd = 0       # save-gates backward kernel calls
 launches_bwd_rec = 0   # recompute backward kernel calls
 launches_bwd_win = 0   # windowed backward kernel calls
+launches_atb = 0       # weight-gradient product calls (atb_kernel)
 
 _CDTYPE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -297,13 +299,15 @@ def _library():
                                     ["wavenet_train.cu"])))
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.vqvae_chunk_fwd.argtypes = [i] * 9 + [p] * 20
-        lib.vqvae_chunk_bwd.argtypes = [i] * 9 + [p] * 23 + [ll] + [p] * 9
-        lib.vqvae_chunk_bwd_rec.argtypes = ([i] * 9 + [p] * 26 + [ll]
+        lib.vqvae_chunk_bwd.argtypes = [i] * 9 + [p] * 24 + [ll] + [p] * 9
+        lib.vqvae_chunk_bwd_rec.argtypes = ([i] * 9 + [p] * 27 + [ll]
                                             + [p] * 9)
-        lib.vqvae_chunk_bwd_win.argtypes = ([i] * 7 + [p, i] + [p] * 22
+        lib.vqvae_chunk_bwd_win.argtypes = ([i] * 7 + [p, i] + [p] * 23
                                             + [ll] + [p] * 9)
+        lib.vqvae_atb_bf16.argtypes = [i, i, p, i, i, p, i, p, p, ll, p]
         for fn in (lib.vqvae_chunk_fwd, lib.vqvae_chunk_bwd,
-                   lib.vqvae_chunk_bwd_rec, lib.vqvae_chunk_bwd_win):
+                   lib.vqvae_chunk_bwd_rec, lib.vqvae_chunk_bwd_win,
+                   lib.vqvae_atb_bf16):
             fn.restype = i
         _lib = lib
     return _lib
@@ -381,10 +385,21 @@ class _Shapes:
                self.dev)
         return dhout, dskips
 
-    def part_cap(self, rows):
-        """float32 words of the split-K scratch for ``rows`` rows."""
-        return max(1 << 22, (rows // 256 + self.B + 1) * 2 * self.R,
-                   2 * self.mu * 16 * self.R)
+    def part_cap(self, T):
+        """float32 words of the split-K scratch for ``T`` rows per batch
+        row: also the column sums of every row tile (32 rows or more) of
+        dh and [da|db], and the sums of each batch row."""
+        R, B = self.R, self.B
+        return max(1 << 22, (B * -(-T // 32) + 1) * 3 * R + B * R,
+                   2 * self.mu * 16 * R)
+
+    def backward_scratch(self, T):
+        """The sweep's compute-dtype scratch over T rows per batch row:
+        (z, du = cdt([da|db]), cdt(dh)); cdt(dh) is dh itself in
+        float32."""
+        B, R = self.B, self.R
+        dhc = self.empty(B, T, R) if self.cdt == torch.bfloat16 else None
+        return [self.empty(B, T, R), self.empty(B, T, 2 * R), dhc]
 
     def grads(self):
         R, S, d, nl = self.R, self.S, self.d, self.nl
@@ -416,10 +431,10 @@ def fwd_kernel(dils, mode, x, wemb, bemb, cond, gc, wff, vc, wr, br, ws,
     _check("tail", tail, (B, T, S) if mode == ACC else (S,), sh.cdt, sh.dev)
     h_out, skips = sh.empty(B, T, R), sh.empty(B, T, S)
     gall = sh.empty(B, nl, T, 2 * R) if save_gates else None
-    skf = sh.empty(B, T, S if nl > 1 else 0, dtype=torch.float32)
+    zall = sh.empty(nl, B, T, R)       # every layer's z, for the skip sum
     # every tensor the kernels touch stays referenced until the call ends
     tensors = [h, ids, wemb, bemb, *args, tail, sh.empty(B, T, R),
-               sh.empty(B, T, R), skf, h_out, skips, gall]
+               sh.empty(B, T, R), zall, h_out, skips, gall]
     err = _library().vqvae_chunk_fwd(
         _CDTYPE[sh.cdt], mode, B, T, R, S, sh.d, sh.mu, nl, sh.dils,
         *map(_ptr, tensors), _stream(sh.dev))
@@ -453,7 +468,7 @@ def bwd_kernel(dils, mode, x, wemb, bemb, cond, gc, wff, vc, wr, br, ws,
     f32 = torch.float32
     dh0, dh1 = sh.empty(B, T, R, dtype=f32), sh.empty(B, T, R, dtype=f32)
     dcond = sh.empty(B, T, d, dtype=f32)
-    cap = sh.part_cap(B * T)
+    cap = sh.part_cap(T)
     grads = sh.grads()
     dwemb = sh.empty(2, mu, R, dtype=f32) if sh.embed else None
     dbemb = sh.empty(R, dtype=f32) if sh.embed else None
@@ -461,8 +476,8 @@ def bwd_kernel(dils, mode, x, wemb, bemb, cond, gc, wff, vc, wr, br, ws,
     # every tensor the kernels touch stays referenced until the call ends
     tensors = [h0, ids, wemb, bemb, cond, tr[0], tr[1], wr, tr[2], br, tr[3],
                gall, dhout, dskips, sh.empty(nl, B, T, R), dh0, dh1,
-               sh.empty(B, T, R, dtype=f32), dcond, sh.empty(B, T, R),
-               sh.empty(B, T, 2 * R, dtype=f32), sh.empty(cap, dtype=f32)]
+               sh.empty(B, T, R, dtype=f32), dcond, *sh.backward_scratch(T),
+               sh.empty(cap, dtype=f32)]
     outs = [*grads.values(), dwemb, dbemb]
     err = _library().vqvae_chunk_bwd(
         _CDTYPE[sh.cdt], int(sh.embed), B, T, R, S, d, mu, nl, sh.dils,
@@ -492,7 +507,7 @@ def bwd_rec_kernel(dils, mode, x, wemb, bemb, cond, gc, wff, vc, wr, br, ws,
     f32 = torch.float32
     dh0 = sh.empty(B, T, R, dtype=f32)
     dcond = sh.empty(B, T, d, dtype=f32)
-    cap = sh.part_cap(B * T)
+    cap = sh.part_cap(T)
     grads = sh.grads()
     dwemb = sh.empty(2, mu, R, dtype=f32) if sh.embed else None
     dbemb = sh.empty(R, dtype=f32) if sh.embed else None
@@ -501,8 +516,7 @@ def bwd_rec_kernel(dils, mode, x, wemb, bemb, cond, gc, wff, vc, wr, br, ws,
     tensors = [h0, ids, wemb, bemb, cond, gc, wff, vc, wr, br, *tr, dhout,
                dskips, sh.empty(nl, B, T, R), sh.empty(B, nl, T, 2 * R), dh0,
                sh.empty(B, T, R, dtype=f32), sh.empty(B, T, R, dtype=f32),
-               dcond, sh.empty(B, T, R), sh.empty(B, T, 2 * R, dtype=f32),
-               sh.empty(cap, dtype=f32)]
+               dcond, *sh.backward_scratch(T), sh.empty(cap, dtype=f32)]
     outs = [*grads.values(), dwemb, dbemb]
     err = _library().vqvae_chunk_bwd_rec(
         _CDTYPE[sh.cdt], int(sh.embed), B, T, R, S, d, mu, nl, sh.dils,
@@ -531,7 +545,7 @@ def bwd_win_kernel(dils, n_windows, x, cond, gc, wff, vc, wr, br, ws, dhout,
     f32 = torch.float32
     dh = sh.empty(B, T, R, dtype=f32)
     dcond = sh.empty(B, T, d, dtype=f32)
-    cap = sh.part_cap(B * Tc)
+    cap = sh.part_cap(Tc)
     grads = sh.grads()
     tr = [t.transpose(1, 2).contiguous() for t in (wff, vc, wr, ws)]
     # every tensor the kernels touch stays referenced until the call ends
@@ -539,8 +553,8 @@ def bwd_win_kernel(dils, n_windows, x, cond, gc, wff, vc, wr, br, ws, dhout,
                sh.empty(nl, B, W, R), sh.empty(B, nl, Tc, 2 * R),
                sh.empty(nl, B, max(dils), R, dtype=f32),
                sh.empty(B, Tc, R, dtype=f32), sh.empty(B, Tc, R, dtype=f32),
-               sh.empty(B, Tc, R, dtype=f32), sh.empty(B, Tc, R),
-               sh.empty(B, Tc, 2 * R, dtype=f32), sh.empty(cap, dtype=f32)]
+               sh.empty(B, Tc, R, dtype=f32), *sh.backward_scratch(Tc),
+               sh.empty(cap, dtype=f32)]
     outs = [dh, dcond, *grads.values()]
     err = _library().vqvae_chunk_bwd_win(
         _CDTYPE[sh.cdt], B, T, R, S, d, nl, sh.dils, n_windows,
@@ -550,6 +564,43 @@ def bwd_win_kernel(dils, n_windows, x, cond, gc, wff, vc, wr, br, ws, dhout,
                            f"{err}")
     launches_bwd_win += 1
     return (dh, dcond, *grads.values(), None, None)
+
+
+def atb_plain(a, b, seg: int, shift: int = 0):
+    """float32 ``a'^T b``: a ``[N, M]``, b ``[N, K]``, ``a'`` a shifted
+    down by ``shift`` rows inside each segment of ``seg`` rows (zero
+    before the segment's start), as the backwards' weight gradients
+    take ``h(t - dil)``."""
+    N, M = a.shape
+    a = _shift_right(a.reshape(N // seg, seg, M), shift).reshape(N, M)
+    return a.float().T @ b.float()
+
+
+def atb_kernel(a, b, seg: int, shift: int = 0):
+    """``atb_plain`` by the backwards' weight-gradient product
+    (``train_common.cuh::atb``, bf16 only), alone; CPU tensors take
+    ``atb_plain``."""
+    global launches_atb
+    if not _on_card(a):
+        return atb_plain(a, b, seg, shift)
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+        raise TypeError("atb kernel takes bfloat16 a and b")
+    (N, M), K = a.shape, b.shape[1]
+    if b.shape[0] != N or N % seg or shift < 0 or a.device != b.device:
+        raise ValueError(f"atb kernel: a {tuple(a.shape)} and b "
+                         f"{tuple(b.shape)} on {a.device}, {b.device}; "
+                         f"seg {seg}, shift {shift}")
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty(M, K, dtype=torch.float32, device=a.device)
+    cap = max(M * K, 1 << 22)
+    part = torch.empty(cap, dtype=torch.float32, device=a.device)
+    err = _library().vqvae_atb_bf16(N, seg, a.data_ptr(), M, shift,
+                                    b.data_ptr(), K, out.data_ptr(),
+                                    part.data_ptr(), cap, _stream(a.device))
+    if err != 0:
+        raise RuntimeError(f"atb kernel failed: error {err}")
+    launches_atb += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
