@@ -647,6 +647,12 @@ def vq_work(N, K, d):
     return 2 * N * K * d + 2 * N * K, 4 * (N * d + K * d + N)
 
 
+def head_exact_ms(N, S):
+    """The float32-FMA time (ms) of x0 @ w1 alone, which both head kernels
+    sum in k order on the CUDA cores (the backward in its recompute)."""
+    return 1e3 * 2 * N * S * S / PEAK_F32
+
+
 def head_work(N, S, mu, backward):
     flops = 2 * N * (S * S + S * mu) * (3 if backward else 1)
     nbytes = 2 * N * S + 4 * N + 2 * (S * S + S) + 2 * S * mu + 4 * mu
@@ -1077,12 +1083,21 @@ def train_time_phase(cfg_all, device, errs):
     torch.cuda.empty_cache()
     args = head_inputs(torch.bfloat16, device, B * T, mc)
     g = torch.tensor(1.0, device=device)
-    rf = compare("head_ce_fwd", [hc.fwd_kernel(*args)], [hc.fwd_plain(*args)],
-                 3e-2, errs)
-    rb = compare("head_ce_bwd", hc.bwd_kernel(*args, g),
-                 hc.bwd_plain(*args, g), 3e-2, errs)
+    lk, gk = hc.fwd_kernel(*args), hc.bwd_kernel(*args, g)
+    rf = compare("head_ce_fwd", [lk], [hc.fwd_plain(*args)], 3e-2, errs)
+    rb = compare("head_ce_bwd", gk, hc.bwd_plain(*args, g), 3e-2, errs)
+    # a second call on the same inputs gives the same bits
+    same = torch.equal(lk, hc.fwd_kernel(*args)) and all(
+        torch.equal(a, b_) for a, b_ in zip(gk, hc.bwd_kernel(*args, g)))
+    check(same, f"head+CE B={B}: a second call differs")
+    # x1 equals the plain version's, so only float32 sum orders move the
+    # loss: a tile computed wrong would move it past 1e-4
+    check(rf <= 1e-4, f"head+CE B={B}: loss rel err {rf:.3g} > 1e-4")
+    del gk
     say("train-time", t0, f"head+CE bfloat16 N={B * T}: loss rel err "
-        f"{rf:.3g}, gradients {rb:.3g} <= 0.03")
+        f"{rf:.3g} <= 1e-4, gradients {rb:.3g} <= 0.03; a second call of "
+        f"each is bit-equal")
+    x1_ms = head_exact_ms(B * T, S)
     for name, kern, plain, bwd in (
             ("head_ce_fwd", lambda: hc.fwd_kernel(*args),
              lambda: hc.fwd_plain(*args), False),
@@ -1091,8 +1106,9 @@ def train_time_phase(cfg_all, device, errs):
         ms_, pms = cuda_ms(kern), cuda_ms(plain, reps=1)
         bms, bby = bound(*head_work(B * T, S, mu, bwd))
         out[name] = dict(ms=ms_, plain_ms=pms, bound_ms=bms, bound_by=bby)
-        say("train-time", t0, f"{name}: kernel {ms_:.2f} ms, plain "
-            f"{pms:.2f} ms, bound {bms:.3f} ms ({bby})")
+        say("train-time", t0, f"{name}: kernel {ms_:.3f} ms, plain "
+            f"{pms:.2f} ms, bound {bms:.3f} ms ({bby}, bf16 rate); x0 @ w1 "
+            f"alone at the float32 FMA rate {x1_ms:.3f} ms")
     del args
     torch.cuda.empty_cache()
 

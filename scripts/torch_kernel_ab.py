@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's chunk kernels of one source tree on the card, for an
-A/B of two commits in one call.
+"""Time the port's training kernels and the stretch step of one source
+tree on the card, for an A/B of two commits in one call.
 
     python3 scripts/torch_kernel_ab.py <tree> <tag>
 
@@ -10,15 +10,50 @@ such as ``build/parent``).  The script builds that tree's kernels into
 ``<tree>/build/ab_<tag>`` and prints one line ``AB <tag> {...}``: the
 mean milliseconds of the chunk forward (``fwd<mode>``) and the
 save-gates backward (``bwd<mode>``) at stretch width, B=64, T=7680,
-bfloat16, for the chained (mode 1) and embed (mode 2) chunks (CUDA
-events, five calls after one warm-up; ``chip_smoke.py``'s inputs).
-Run the two trees in turns in one call (parent, change, change,
-parent) so that both are timed on one card.  Needs one GPU; no JAX.
+bfloat16, for the chained (mode 1) and embed (mode 2) chunks, and of
+the head + CE forward and backward (``head_fwd``, ``head_bwd``) at
+N = 64 x 7680 rows (CUDA events, five calls after one warm-up;
+``chip_smoke.py``'s inputs), then the ``stretch`` training step at B=64
+(``step``: median of 3 synchronised steps after one warm-up,
+``peak_gib``: the card memory those steps allocated at most) and the
+same step with the plain decoder and head (``plain_step``).  Run the
+two trees in turns in one call (parent, change, change, parent) so that
+both are timed on one card.  Needs one GPU; no JAX.
 """
 
 import json
 import os
+import statistics
 import sys
+import time
+
+
+def step_ms(cfg, dev, n=3):
+    """(median ms of n stretch steps, peak GiB) after one warm-up step,
+    on SineDataset batches as chip_smoke.py's train-time phase."""
+    import torch
+    from vqvae_tpu_torch.audio.datasets import SineDataset
+    from vqvae_tpu_torch.audio.loader import BatchLoader
+    from vqvae_tpu_torch.train.state import create_train_state
+    from vqvae_tpu_torch.train.step import train_step
+    loader = BatchLoader(SineDataset(cfg.data), cfg.train.batch_size, seed=0)
+    batches = [tuple(torch.from_numpy(a).to(dev) for a in next(loader))
+               for _ in range(2)]
+    loader.close()
+    state = create_train_state(cfg, dev)
+    train_step(state, *batches[0], cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        train_step(state, *batches[(i + 1) % 2], cfg)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    del state, batches
+    torch.cuda.empty_cache()
+    return statistics.median(times), peak
 
 
 def main():
@@ -26,17 +61,20 @@ def main():
     os.environ["VQVAE_TORCH_BUILD_DIR"] = os.path.join(tree, "build",
                                                        "ab_" + tag)
     sys.path.insert(0, tree)
+    import dataclasses
     import torch
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     import chip_smoke as cs
     from vqvae_tpu_torch.configs import get_config
+    from vqvae_tpu_torch.kernels import head_ce_cuda as hc
     from vqvae_tpu_torch.kernels import wavenet_train_cuda as wt
     if not wt.__file__.startswith(tree):
         sys.exit(f"imported {wt.__file__}, not the tree {tree}")
     dev = torch.device("cuda")
-    mc = get_config("stretch").model
+    cfg = get_config("stretch")
+    mc = cfg.model
     res = {}
     for mode in (wt.ACC, wt.EMBED):
         args, cots = cs.chunk_inputs(mode, torch.bfloat16, dev, 64, 7680, mc)
@@ -46,6 +84,16 @@ def main():
             lambda: wt.bwd_kernel(*args[:-1], gall, *cots), reps=5)
         del args, cots, gall
         torch.cuda.empty_cache()
+    args = cs.head_inputs(torch.bfloat16, dev, 64 * 7680, mc)
+    g = torch.tensor(1.0, device=dev)
+    res["head_fwd"] = cs.cuda_ms(lambda: hc.fwd_kernel(*args), reps=5)
+    res["head_bwd"] = cs.cuda_ms(lambda: hc.bwd_kernel(*args, g), reps=5)
+    del args
+    torch.cuda.empty_cache()
+    res["step"], res["peak_gib"] = step_ms(cfg, dev)
+    res["plain_step"], _ = step_ms(cfg.replace(model=dataclasses.replace(
+        mc, decoder_kernel="xla", head_kernel="xla", embed_in_kernel=False)),
+        dev)
     print("AB", tag, json.dumps({k: round(v, 3) for k, v in res.items()}),
           flush=True)
 

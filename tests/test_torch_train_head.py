@@ -26,11 +26,18 @@ def _inputs(B=2, T=100, S=64, mu=256, seed=0):
             rn(S, mu, scale=S ** -0.5), rn(mu, scale=0.1))
 
 
-@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
-def test_plain_head_ce_matches_jax(cdt, monkeypatch):
-    # a 96-row tile: 200 rows pad to 288 in the JAX kernel
+# S = 64, and the widths the card runs (stretch: S = mu = 256); the ids
+# of the S = 64 cases are the ones this test had before it took S
+@pytest.mark.parametrize("cdt, S", [
+    pytest.param(torch.float32, 64, id="cdt0"),
+    pytest.param(torch.bfloat16, 64, id="cdt1"),
+    pytest.param(torch.float32, 256, id="cdt0-S256"),
+    pytest.param(torch.bfloat16, 256, id="cdt1-S256")])
+def test_plain_head_ce_matches_jax(cdt, S, monkeypatch):
+    # a 96-row tile: 200 rows (not a multiple of the card kernels' 32-row
+    # tile, nor of 64) pad to 288 in the JAX kernel
     monkeypatch.setattr(hk, "TILE", 96)
-    skips, tgt, w1, b1, w2, b2 = _inputs()
+    skips, tgt, w1, b1, w2, b2 = _inputs(S=S)
     jd = jnp.float32 if cdt == torch.float32 else jnp.bfloat16
     g = 1.7
 

@@ -194,53 +194,30 @@ __device__ __forceinline__ void mac(float (&acc)[RT][CT], const TX* X,
 }
 
 // out[r*ldo + c] = sum_k X[r*ldx + k] * W[k*ldw + c] for the TM rows of a
-// tile and c < ncols, into float32 shared memory.  With TC and a bfloat16
-// T it runs on the tensor cores: 16x16x16 bf16 fragments (X from shared
-// memory, W straight from global memory) into float32 accumulators, one
-// 16x16 output tile per warp at a time (K and ncols multiples of 16).
-// Otherwise it is the scalar mac above, each output summed in k order,
-// which is also the order the plain version's products sum in on the
-// card: a forward product whose result is rounded to bf16 and then fed
-// through a ReLU or a gate keeps that order, so the kernel's forward
-// equals the plain version's bit for bit instead of flipping roundings.
-template <int CT, bool TC, typename T>
+// tile and c < ncols, into float32 shared memory: the scalar mac above,
+// each output summed in k order, which is also the order the plain
+// version's products sum in on the card: a forward product whose result
+// is rounded to bf16 and then fed through a ReLU or a gate keeps that
+// order, so the kernel's forward equals the plain version's bit for bit
+// instead of flipping roundings.
+template <int CT, typename T>
 __device__ __forceinline__ void tile_mm(float* out, int ldo, const T* X,
                                         int ldx, const T* __restrict__ W,
                                         int ldw, int K, int ncols) {
-  const int tid = threadIdx.x;
-  if constexpr (TC && std::is_same<T, bf16>::value) {
-    using namespace nvcuda;
-    const int ntiles = (TM / 16) * (ncols / 16);
-    for (int tile = tid >> 5; tile < ntiles; tile += RG) {
-      const int tr = tile % (TM / 16), tc = tile / (TM / 16);
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int k = 0; k < K; k += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, X + tr * 16 * ldx + k, ldx);
-        wmma::load_matrix_sync(fb, W + (size_t)k * ldw + tc * 16, ldw);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(out + tr * 16 * ldo + tc * 16, acc, ldo,
-                              wmma::mem_row_major);
+  const int tid = threadIdx.x, cg = tid & 31, rg = tid >> 5;
+  float acc[RT][CT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int j = 0; j < CT; ++j) acc[i][j] = 0.f;
+  mac<CT>(acc, X, ldx, W, ldw, K, ncols, rg, cg);
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int j = 0; j < CT; ++j) {
+      const int c = cg + 32 * j;
+      if (c < ncols) out[(rg + RG * i) * ldo + c] = acc[i][j];
     }
-  } else {
-    const int cg = tid & 31, rg = tid >> 5;
-    float acc[RT][CT];
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-#pragma unroll
-      for (int j = 0; j < CT; ++j) acc[i][j] = 0.f;
-    mac<CT>(acc, X, ldx, W, ldw, K, ncols, rg, cg);
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-#pragma unroll
-      for (int j = 0; j < CT; ++j) {
-        const int c = cg + 32 * j;
-        if (c < ncols) out[(rg + RG * i) * ldo + c] = acc[i][j];
-      }
-  }
 }
 
 // float32 words of shared memory that n elements of T take, rounded up

@@ -759,8 +759,8 @@ __global__ void bwd_layer(int Tn, int Tg, int tw0, int R, int S, int d,
     dsk[e] = t < Tn ? dskips[(gbase + t) * S + e % S] : 0.f;
   }
   __syncthreads();
-  tile_mm<2, false>(o1, R, dhc, R, wrT, R, R, R);      // dh @ wr^T
-  tile_mm<2, false>(o2, R, dsk, S, wsT, R, S, R);      // dskips @ ws^T
+  tile_mm<2>(o1, R, dhc, R, wrT, R, R, R);      // dh @ wr^T
+  tile_mm<2>(o2, R, dsk, S, wsT, R, S, R);      // dskips @ ws^T
   __syncthreads();
   for (int e = tid; e < TM * R; e += NT) {
     const int r = e / R, c = e % R, t = t0 + r;
@@ -791,8 +791,8 @@ __global__ void bwd_layer(int Tn, int Tg, int tw0, int R, int S, int d,
     for (int r = 0; r < TM; ++r) s += dhc[r * R + c];
     pdbr[part * R + c] = s;
   }
-  tile_mm<2, false>(o3, d, dus, R2, vcT, d, R2, d);      // du @ vc^T
-  tile_mm<4, false>(o2, R2, dus, R2, wffT, R2, R2, R2);  // du @ wff^T
+  tile_mm<2>(o3, d, dus, R2, vcT, d, R2, d);      // du @ vc^T
+  tile_mm<4>(o2, R2, dus, R2, wffT, R2, R2, R2);  // du @ wff^T
   __syncthreads();
   for (int e = tid; e < TM * d; e += NT) {
     const int t = t0 + e / d;

@@ -119,7 +119,9 @@ def fwd_kernel(skips, targets, w1, b1, w2, b2) -> torch.Tensor:
     """Loss as a float32 0-d tensor; arguments as ``fwd_plain``."""
     global launches_fwd
     cdt, dev, N, S, mu = _prepare(skips, targets, w1, b1, w2, b2)
-    cap = -(-N // 32)
+    # a loss partial per 32-row tile, then (bfloat16) w2's packed
+    # fragments, 16-byte aligned
+    cap = -(-N // 128) * 4 + (S * mu // 2 if cdt == torch.bfloat16 else 0)
     part = torch.empty(cap, dtype=torch.float32, device=dev)
     loss = torch.empty((), dtype=torch.float32, device=dev)
     tensors = [skips, targets, w1, b1, w2, b2, part]
@@ -137,9 +139,18 @@ def bwd_kernel(skips, targets, w1, b1, w2, b2, g):
     global launches_bwd
     cdt, dev, N, S, mu = _prepare(skips, targets, w1, b1, w2, b2)
     f32 = torch.float32
-    cap = max(1 << 22, -(-N // 32) * (S + mu))
+    # per-tile column sums, w2's packed fragments (bfloat16), their sums
+    # by blocks of 256 tiles; the weight-gradient products reuse the
+    # scratch from its start
+    tiles = -(-N // 32)
+    packed = S * mu if cdt == torch.bfloat16 else 0
+    cap = max(1 << 22, tiles * (S + mu) + packed
+              + -(-tiles // 256) * max(S, mu))
     g = g.to(dev, f32).reshape(1).contiguous()
-    w1T, w2T = w1.T.contiguous(), w2.T.contiguous()
+    # the float32 kernel reads w1 and w2 transposed; bfloat16 keeps w1 in
+    # shared memory and w2 as packed fragments, and takes null here
+    w1T, w2T = ((w1.T.contiguous(), w2.T.contiguous()) if cdt == f32
+                else (None, None))
     dskips = torch.empty((N, S), dtype=cdt, device=dev)
     grads = [torch.empty(s, dtype=f32, device=dev)
              for s in ((S, S), (S,), (S, mu), (mu,))]
@@ -149,7 +160,8 @@ def bwd_kernel(skips, targets, w1, b1, w2, b2, g):
     tensors = [skips, targets, w1, b1, w2, b2, w1T, w2T, g, *scratch, dskips,
                torch.empty(cap, dtype=f32, device=dev)]
     err = _library().vqvae_head_ce_bwd(
-        _CDTYPE[cdt], N, S, mu, *(t.data_ptr() for t in tensors), cap,
+        _CDTYPE[cdt], N, S, mu,
+        *(None if t is None else t.data_ptr() for t in tensors), cap,
         *(t.data_ptr() for t in grads), _stream(dev))
     if err != 0:
         raise RuntimeError(f"head backward kernel failed: error {err}")
