@@ -102,8 +102,14 @@ nonzero:
              B=16, T=7680, float32 and bfloat16: z and every gradient within
              1e-4 / 3e-2 of its max; the streaming encoder with the switch
              equal to one-shot encode bit for bit at two push widths; each
-             kernel timed beside its plain version and its bound, at B=16
-             and at a 1 s encode (B=1, T=16000).
+             kernel timed beside its plain version, its bound and the time
+             of its float64 products alone at the FP64 tensor-core rate, at
+             B=16 and at a 1 s encode (B=1, T=16000), with the backward's
+             split by CUDA events (recompute, the projection's and the
+             layers' input gradients, the weight and bias gradients), the
+             count of z elements whose bits differ from the plain
+             version's, and the layers' float64 torch.matmul calls on
+             pre-built windows (a yardstick of several library calls).
 13. cli-codec — the codec CLIs as subprocesses on vctk-multi: 2 steps of
              ``vqvae-torch-train --dataset vctk --set
              model.encoder_kernel=pallas`` (B=16, T=7680; the encoder's
@@ -153,6 +159,7 @@ TRAIN_PRESET = "stretch"
 VQ_MARGIN = 1e-4        # near-tie margin of the VQ id check, of max|score|
 PEAK_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate
 PEAK_F32 = 67e12        # H100 SXM float32 rate outside the tensor cores
+PEAK_F64_TC = 67e12     # H100 SXM float64 tensor-core rate (DMMA)
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
 T_CHECK = 640
 TEMP = 0.9
@@ -560,6 +567,32 @@ def enc_work(B, M0, C, d, L, backward):
     grads = 4 * (L * 4 * C * C + L * C + C * d + d)
     return (3 * taps + 2 * 2 * Nz * C * d,
             2 * B * M0 * C + weights + 4 * Nz * d + 2 * B * M0 * C + grads)
+
+
+def enc_exact_ms(B, M0, C, d, L, backward):
+    """The FP64 tensor-core time (ms) of the products the encoder keeps
+    in float64: the forward's taps and projection, the backward's
+    recompute (its taps)."""
+    rows = sum(B * (M0 >> (i + 1)) for i in range(L))
+    flops = 2 * 4 * C * C * rows
+    if not backward:
+        flops += 2 * B * (M0 >> L) * C * d
+    return 1e3 * flops / PEAK_F64_TC
+
+
+def enc_dgemm_ms(h, wr, br, L):
+    """The layers' products as float64 torch.matmul calls (one a layer)
+    on windows built beforehand from the plain version's layer inputs:
+    a yardstick of several library calls, not one."""
+    import torch
+    from vqvae_tpu_torch.kernels import encoder_cuda as ec
+    ins = [h] + ec._layers(h, wr.to(h.dtype), br, 2)[:-1]
+    wins = [ec._windows(x, 4, 2).double() for x in ins]
+    ws = [wr[i].reshape(-1, wr.shape[-1]).double() for i in range(L)]
+    ms = cuda_ms(lambda: [torch.matmul(a, b) for a, b in zip(wins, ws)],
+                 reps=5)
+    del ins, wins, ws
+    return ms
 
 
 def upsample_work(B, Tl, hop, d, es, backward):
@@ -1472,20 +1505,33 @@ def enc_kernel_phase(device, errs):
     out = {}
     for B, M in ((16, M0), (1, cfg_all.data.sr // mc.enc_stride)):
         h, w, dz = enc_inputs(torch.bfloat16, device, B, M, mc)
-        rows = [("encoder_fwd", lambda: ec.fwd_kernel(h, *w),
-                 lambda: ec.fwd_plain(h, *w), False)]
-        if B == 16:
-            rows.append(("encoder_bwd", lambda: ec.bwd_kernel(h, *w, dz),
-                         lambda: ec.bwd_plain(h, *w, dz), True))
-        for name, kern, plain, bwd in rows:
-            ms_, pms = cuda_ms(kern, reps=5), cuda_ms(plain, reps=1)
+        z, zp = ec.fwd_kernel(h, *w), ec.fwd_plain(h, *w)
+        say("enc-kernel", t0, f"bfloat16 B={B} h [{B}, {M}, {C}]: "
+            f"{int((z != zp).sum())} of {z.numel()} z elements differ in "
+            f"their bits from the plain version's")
+        del z, zp
+        for name, kern, plain, bwd in (
+                ("encoder_fwd", lambda: ec.fwd_kernel(h, *w),
+                 lambda: ec.fwd_plain(h, *w), False),
+                ("encoder_bwd", lambda: ec.bwd_kernel(h, *w, dz),
+                 lambda: ec.bwd_plain(h, *w, dz), True)):
+            # 20 calls: at B=1 five would time the host's enqueue
+            ms_, pms = cuda_ms(kern, reps=20), cuda_ms(plain, reps=1)
             bms, bby = bound(*enc_work(B, M, C, d, L, bwd))
             if B == 16:
                 out[name] = dict(ms=ms_, plain_ms=pms, bound_ms=bms,
                                  bound_by=bby)
             say("enc-kernel", t0, f"{name} bfloat16 B={B} h [{B}, {M}, {C}]:"
-                f" kernel {ms_:.3f} ms, plain {pms:.2f} ms, bound "
-                f"{bms * 1e3:.2f} us ({bby})")
+                f" kernel {ms_:.4f} ms, plain {pms:.3f} ms, bound "
+                f"{bms * 1e3:.2f} us ({bby}, bf16 rate); its float64 "
+                f"products alone at the FP64 tensor-core rate "
+                f"{enc_exact_ms(B, M, C, d, L, bwd):.4f} ms")
+        split = ec.bwd_split_ms(h, *w, dz)
+        say("enc-kernel", t0, f"encoder_bwd B={B} split (CUDA events): "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()))
+        say("enc-kernel", t0, f"B={B}: the {L} layers as float64 "
+            f"torch.matmul on pre-built windows ({L} library calls, not "
+            f"one): {enc_dgemm_ms(h, w[0], w[1], L):.4f} ms")
         del h, w, dz
     torch.cuda.empty_cache()
     return out

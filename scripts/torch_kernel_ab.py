@@ -12,11 +12,16 @@ mean milliseconds of the chunk forward (``fwd<mode>``) and the
 save-gates backward (``bwd<mode>``) at stretch width, B=64, T=7680,
 bfloat16, for the chained (mode 1) and embed (mode 2) chunks, and of
 the head + CE forward and backward (``head_fwd``, ``head_bwd``) at
-N = 64 x 7680 rows (CUDA events, five calls after one warm-up;
-``chip_smoke.py``'s inputs), then the ``stretch`` training step at B=64
-(``step``: median of 3 synchronised steps after one warm-up,
-``peak_gib``: the card memory those steps allocated at most) and the
-same step with the plain decoder and head (``plain_step``).  Run the
+N = 64 x 7680 rows, and of the fused encoder's forward at vctk-multi
+width, bfloat16, B=16, T=7680 and at a 1 s encode, B=1 (``enc_fwd16``,
+``enc_fwd1``) and its backward at B=16 (``enc_bwd16``) (CUDA events,
+five calls after one warm-up, twenty for the encoder; ``chip_smoke.py``'s
+inputs), then the
+``stretch`` training step at B=64 (``step``: median of 3 synchronised
+steps after one warm-up, ``peak_gib``: the card memory those steps
+allocated at most), the same step with the plain decoder and head
+(``plain_step``), and the ``vctk-multi`` step at B=16 with the VQ
+kernel and the fused encoder (``vctk_enc_step``).  Run the
 two trees in turns in one call (parent, change, change, parent) so that
 both are timed on one card.  Needs one GPU; no JAX.
 """
@@ -28,9 +33,10 @@ import sys
 import time
 
 
-def step_ms(cfg, dev, n=3):
-    """(median ms of n stretch steps, peak GiB) after one warm-up step,
-    on SineDataset batches as chip_smoke.py's train-time phase."""
+def step_ms(cfg, dev, n=3, **kw):
+    """(median ms of n training steps, peak GiB) after one warm-up step,
+    on SineDataset batches as chip_smoke.py's train-time phases; kw goes
+    to train_step."""
     import torch
     from vqvae_tpu_torch.audio.datasets import SineDataset
     from vqvae_tpu_torch.audio.loader import BatchLoader
@@ -41,13 +47,13 @@ def step_ms(cfg, dev, n=3):
                for _ in range(2)]
     loader.close()
     state = create_train_state(cfg, dev)
-    train_step(state, *batches[0], cfg)
+    train_step(state, *batches[0], cfg, **kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     times = []
     for i in range(n):
         t0 = time.perf_counter()
-        train_step(state, *batches[(i + 1) % 2], cfg)
+        train_step(state, *batches[(i + 1) % 2], cfg, **kw)
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
@@ -68,6 +74,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     import chip_smoke as cs
     from vqvae_tpu_torch.configs import get_config
+    from vqvae_tpu_torch.kernels import encoder_cuda as ec
     from vqvae_tpu_torch.kernels import head_ce_cuda as hc
     from vqvae_tpu_torch.kernels import wavenet_train_cuda as wt
     if not wt.__file__.startswith(tree):
@@ -90,11 +97,27 @@ def main():
     res["head_bwd"] = cs.cuda_ms(lambda: hc.bwd_kernel(*args, g), reps=5)
     del args
     torch.cuda.empty_cache()
+    vctk = get_config("vctk-multi")
+    s = vctk.model.enc_stride
+    for B, M, names in ((16, vctk.data.length // s, ("enc_fwd16",
+                                                     "enc_bwd16")),
+                        (1, vctk.data.sr // s, ("enc_fwd1",))):
+        h, w, dz = cs.enc_inputs(torch.bfloat16, dev, B, M, vctk.model)
+        # 20 calls: a B=1 call is short enough that 5 would time the host
+        res[names[0]] = cs.cuda_ms(lambda: ec.fwd_kernel(h, *w), reps=20)
+        if len(names) > 1:
+            res[names[1]] = cs.cuda_ms(lambda: ec.bwd_kernel(h, *w, dz),
+                                       reps=20)
+        del h, w, dz
+    torch.cuda.empty_cache()
     res["step"], res["peak_gib"] = step_ms(cfg, dev)
     res["plain_step"], _ = step_ms(cfg.replace(model=dataclasses.replace(
         mc, decoder_kernel="xla", head_kernel="xla", embed_in_kernel=False)),
         dev)
-    print("AB", tag, json.dumps({k: round(v, 3) for k, v in res.items()}),
+    res["vctk_enc_step"], _ = step_ms(vctk.replace(model=dataclasses.replace(
+        vctk.model, decoder_kernel="pallas", encoder_kernel="pallas")), dev,
+        impl="pallas")
+    print("AB", tag, json.dumps({k: round(v, 4) for k, v in res.items()}),
           flush=True)
 
 

@@ -446,6 +446,73 @@ def test_encoder_kernels_vs_plain(cuda, cdt):
         assert _rel_err(a, b) <= TRAIN_TOL[cdt]
 
 
+def _enc_inputs(dev, cdt, B, M0, C=128, d=64, L=5, seed=0):
+    """Seeded inputs of the fused encoder at vctk-multi widths (non-zero
+    biases), as test_encoder_kernels_vs_plain makes them."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g) * scale
+    h = torch.relu(rn(B, M0, C)).to(dev, cdt)
+    w = [t.to(dev) for t in (rn(L, 4, C, C, scale=(4 * C) ** -0.5),
+                             rn(L, C, scale=0.3), rn(C, d, scale=C ** -0.5),
+                             rn(d, scale=0.3))]
+    return h, w, rn(B, M0 >> L, d).to(dev)
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_encoder_kernels_vs_plain_codec_shape(cuda, cdt):
+    """The codec's 1 s encode (B=1, M0=8000: 4000 .. 250 rows a layer,
+    the small grids the tiles must spread over the card): z and every
+    gradient within 1e-4 (float32) / 3e-2 (bfloat16) of its max."""
+    h, w, dz = _enc_inputs(cuda, cdt, 1, 8000)
+    assert _rel_err(ec.fwd_kernel(h, *w), ec.fwd_plain(h, *w)) \
+        <= TRAIN_TOL[cdt]
+    for a, b in zip(ec.bwd_kernel(h, *w, dz), ec.bwd_plain(h, *w, dz)):
+        assert _rel_err(a, b) <= TRAIN_TOL[cdt]
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_encoder_forward_rows_do_not_depend_on_batch_or_length(cuda, cdt):
+    """Row b of a B=16 call equals a B=1 call on that row, and the first
+    half of the length gives the first rows of z (all but its last, whose
+    window reaches past the half), bit for bit: each output sums in one
+    order whatever tile the grid picks."""
+    h, w, _ = _enc_inputs(cuda, cdt, 16, 3840, seed=2)
+    z = ec.fwd_kernel(h, *w)
+    for b in range(16):
+        assert torch.equal(ec.fwd_kernel(h[b:b + 1].contiguous(), *w)[0],
+                           z[b]), b
+    zh = ec.fwd_kernel(h[:, :1920].contiguous(), *w)
+    assert torch.equal(zh[:, :-1], z[:, :zh.shape[1] - 1])
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_encoder_kernels_repeat_bit_equal(cuda, cdt):
+    h, w, dz = _enc_inputs(cuda, cdt, 16, 3840, seed=3)
+    assert torch.equal(ec.fwd_kernel(h, *w), ec.fwd_kernel(h, *w))
+    for a, b in zip(ec.bwd_kernel(h, *w, dz), ec.bwd_kernel(h, *w, dz)):
+        assert torch.equal(a, b)
+
+
+def test_encoder_dmma_one_tile_layout(cuda):
+    """One tile (B=1, 32 rows, one layer): the float64 mma.sync fragments
+    of the layer and of the projection against a float64 torch.matmul, on
+    small integers, where every sum is exact: z must be equal."""
+    g = torch.Generator().manual_seed(4)
+    C, d = 128, 64
+    h = torch.randint(0, 4, (1, 32, C), generator=g).float()
+    wr = torch.randint(-2, 3, (1, 4, C, C), generator=g).float()
+    br = torch.randint(-8, 9, (1, C), generator=g).float()
+    wp = torch.randint(-2, 3, (C, d), generator=g).float()
+    bp = torch.randint(-8, 9, (d,), generator=g).float()
+    y = torch.relu(torch.matmul(ec._windows(h, 4, 2).double(),
+                                wr[0].reshape(4 * C, C).double()) + br[0])
+    want = torch.matmul(y, wp.double()) + bp
+    got = ec.fwd_kernel(*(t.to(cuda) for t in (h, wr, br, wp, bp)))
+    assert torch.equal(got.cpu().double(), want)
+
+
 def test_streaming_encoder_with_the_kernel_equals_one_shot(cuda):
     """``encoder_kernel="pallas"`` on the card: the streaming encoder's
     windows give the one-shot codes bit for bit (each output row sums in

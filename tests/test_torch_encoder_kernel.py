@@ -218,6 +218,7 @@ def test_one_layer_encoder_needs_no_kernel(switched):
     (dict(k=3), "kernel 4"),
     (dict(C=160), "C <= 128"),
     (dict(M0=36), "halve"),
+    (dict(C=48), "multiple of 32"),
 ])
 def test_kernel_wrapper_refuses_shapes_it_does_not_take(change, needle):
     p = dict(s=2, k=4, C=32, M0=64, L=3)
@@ -227,3 +228,58 @@ def test_kernel_wrapper_refuses_shapes_it_does_not_take(change, needle):
     with pytest.raises(ValueError, match=needle):
         ec._Args(p["s"], h, wr, torch.zeros(p["L"], p["C"]),
                  torch.zeros(p["C"], 16), torch.zeros(16))
+
+
+def _round(x: np.ndarray, dtype: str) -> np.ndarray:
+    """float32 values rounded to ``dtype`` (nearest even), as float32."""
+    t = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    return t.to(TORCH_DT[dtype]).float().numpy()
+
+
+def _kernel_order_product(x: np.ndarray, w: np.ndarray) -> np.ndarray:
+    """``x @ w`` in float64 as the card sums it: K in chunks of 16 (one
+    ``mma.sync`` m16n8k16 ``.f64`` each), each chunk's partial added to one
+    running sum per output, in ascending K; rounded once to float32."""
+    acc = np.zeros(x.shape[:-1] + (w.shape[1],))
+    for k0 in range(0, x.shape[-1], 16):
+        acc += x[..., k0:k0 + 16] @ w[k0:k0 + 16]
+    return acc.astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_sum_order_rounds_as_the_plain_version(dtype):
+    """The argument the FP64 tensor-core forward rests on: each layer's
+    taps summed in float64 in the kernel's order (tap by tap, 16-channel
+    chunk partials, one running sum), rounded once to float32, then the
+    float32 bias, ReLU and cdt rounding, give the plain version's layers
+    and z (a float64 DGEMM in its own order) bit for bit at vctk-multi's
+    widths."""
+    rng = np.random.default_rng(7)
+    B, M0, C, d, L = 2, 1024, 128, 64, 5
+    h = _round(np.maximum(rng.standard_normal((B, M0, C)), 0), dtype)
+    wr = _round(rng.standard_normal((L, 4, C, C)) / np.sqrt(4 * C), dtype)
+    br = rng.normal(0, 0.3, (L, C)).astype(np.float32)
+    wp = _round(rng.standard_normal((C, d)) / np.sqrt(C), dtype)
+    bp = rng.normal(0, 0.3, d).astype(np.float32)
+
+    x, want = h, []
+    for i in range(L):
+        Mo = x.shape[1] // 2
+        xp = np.pad(x, ((0, 0), (1, 1), (0, 0))).astype(np.float64)
+        # output row m reads x[2m + j - 1], tap j, one K of 4C in tap order
+        win = np.concatenate([xp[:, j:j + 2 * Mo:2] for j in range(4)], -1)
+        pre = _kernel_order_product(win, wr[i].reshape(4 * C, C).astype(
+            np.float64)) + br[i]
+        x = _round(np.maximum(pre, 0), dtype)
+        want.append(x)
+    z = _kernel_order_product(x.astype(np.float64),
+                              wp.astype(np.float64)) + bp
+
+    dt = TORCH_DT[dtype]
+    args = [torch.from_numpy(a) for a in (wr, br, wp, bp)]
+    ht = torch.from_numpy(h).to(dt)
+    layers = ec._layers(ht, args[0].to(dt), args[1], 2)
+    for i, (got, w) in enumerate(zip(layers, want)):
+        np.testing.assert_array_equal(got.float().numpy(), w,
+                                      err_msg=f"layer {i + 2}")
+    np.testing.assert_array_equal(ec.fwd_plain(ht, *args).numpy(), z)

@@ -66,7 +66,8 @@ template <typename T> __device__ __forceinline__ float rnd(float x) {
 // ---- tensor-core and async-copy primitives (PTX) ----
 // The bf16 tile products below run on mma.sync m16n8k16 (bf16 inputs,
 // float32 accumulators) from fragments that ldmatrix reads out of shared
-// memory; tiles reach shared memory by 16-byte cp.async copies.
+// memory; tiles reach shared memory by 16-byte cp.async copies.  The
+// encoder's exact products run on the FP64 tensor cores (mma_f64).
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -116,6 +117,21 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d[16x8] += a[16x16] b[16x8] on the FP64 tensor cores (m16n8k16, sm_90):
+// float64 products and sums.  Lane l, with g = l / 4 and t = l % 4, holds
+// a[i] = A[g + 8 (i % 2)][t + 4 (i / 2)], b[i] = B[t + 4 i][g] and
+// d[q] = D[g + 8 (q / 2)][2 t + q % 2].
+__device__ __forceinline__ void mma_f64(double (&d)[4], const double (&a)[8],
+                                        const double (&b)[4]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7,%8,%9,%10,%11}, {%12,%13,%14,%15}, "
+      "{%0,%1,%2,%3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]),
+        "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
 }
 // ---- end of PTX primitives ----
 

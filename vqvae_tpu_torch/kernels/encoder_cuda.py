@@ -30,9 +30,15 @@ what the first layer's autograd then receives.  Weight gradients come
 back float32 in the ``[L, 4, C, C]`` tap layout (the TPU kernel's
 packing of the taps into zero-padded blocks does not carry over).
 
-The backward's products sum in float32 in the kernels (float64 rounded
-once in the plain versions): they feed no ReLU, so the two agree to
-float32 rounding.
+On the card the forward's row products and the projection run on the
+FP64 tensor cores (``mma.sync`` m16n8k16 ``.f64``), each output's sum in
+one fixed order whatever the batch, the length or the tile.  The
+backward's input-gradient products feed no ReLU (the masks come from the
+bit-equal recompute): in bfloat16 they run on the bf16 tensor cores and
+sum in float32, in float32 on the float64 engine (float64 rounded once,
+as in the plain versions); the two agree to float32 rounding.  The
+kernels take widths ``C`` that are multiples of 32 and latents ``d``
+that are multiples of 8 (every preset's).
 
 ``EncoderStack`` is a ``torch.autograd.Function``: CPU tensors run the
 plain versions, CUDA tensors launch the kernels or raise.
@@ -145,7 +151,7 @@ def _library():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.vqvae_enc_fwd.argtypes = [i] * 6 + [p] * 9
         lib.vqvae_enc_bwd.argtypes = ([i] * 6 + [p] * 13
-                                      + [ctypes.c_longlong] + [p] * 5)
+                                      + [ctypes.c_longlong] + [p] * 6)
         lib.vqvae_enc_fwd.restype = lib.vqvae_enc_bwd.restype = i
         _lib = lib
     return _lib
@@ -169,9 +175,10 @@ class _Args:
             raise ValueError(f"encoder kernel takes stride 2 and kernel 4, "
                              f"got {s} and {k}")
         if (C_in, C_out) != (self.C, self.C) or self.C > MAX_WIDTH \
-                or self.d > MAX_WIDTH:
+                or self.d > MAX_WIDTH or self.C % 32 or self.d % 8:
             raise ValueError(f"encoder kernel takes uniform widths C <= "
-                             f"{MAX_WIDTH} and d <= {MAX_WIDTH}; got h "
+                             f"{MAX_WIDTH} (a multiple of 32) and d <= "
+                             f"{MAX_WIDTH} (a multiple of 8); got h "
                              f"width {self.C}, taps {C_in}->{C_out}, "
                              f"d={self.d}")
         if self.M0 % (1 << self.L) or self.M0 < (1 << self.L):
@@ -218,11 +225,9 @@ def fwd_kernel(h, wr, br, wp, bp, s: int = 2) -> torch.Tensor:
     return z
 
 
-def bwd_kernel(h, wr, br, wp, bp, dz, s: int = 2):
-    """The recompute kernel's (dh0, dwr, dbr, dwp, dbp); see
-    ``bwd_plain``.  Every layer's output lives only inside this call."""
-    global launches_bwd
-    a = _Args(s, h, wr, br, wp, bp)
+def _bwd_call(a: _Args, dz, events=None):
+    """One launch of the recompute backward kernel (``events``: the
+    pieces' CUDA events, see ``bwd_split_ms``)."""
     f32 = torch.float32
     dz = dz.to(f32).contiguous()
     if tuple(dz.shape) != (a.B, a.Mz, a.d) or dz.device != a.dev:
@@ -241,13 +246,46 @@ def bwd_kernel(h, wr, br, wp, bp, dz, s: int = 2):
                a.empty(rows, C), a.empty(B, M0 // 2, C, dtype=f32),
                a.empty(B, M0 // 2, C, dtype=f32), dh0,
                a.empty(cap, dtype=f32)]
+    ev = None
+    if events is not None:
+        ev = (ctypes.c_void_p * len(events))(*(e.cuda_event
+                                                for e in events))
     err = _library().vqvae_enc_bwd(
         _CDTYPE[a.cdt], B, M0, C, d, L, *(t.data_ptr() for t in tensors),
-        cap, *(g.data_ptr() for g in grads), a.stream())
+        cap, *(g.data_ptr() for g in grads), a.stream(), ev)
     if err != 0:
         raise RuntimeError(f"encoder backward kernel failed: error {err}")
-    launches_bwd += 1
     return (dh0, *grads)
+
+
+def bwd_kernel(h, wr, br, wp, bp, dz, s: int = 2):
+    """The recompute kernel's (dh0, dwr, dbr, dwp, dbp); see
+    ``bwd_plain``.  Every layer's output lives only inside this call."""
+    global launches_bwd
+    out = _bwd_call(_Args(s, h, wr, br, wp, bp), dz)
+    launches_bwd += 1
+    return out
+
+
+def bwd_split_ms(h, wr, br, wp, bp, dz, s: int = 2) -> dict:
+    """Milliseconds of one backward kernel call by piece, from CUDA events
+    the kernel records around them: ``recompute`` (pass 1),
+    ``proj_dx`` (the projection's input gradient), ``dx`` (the layers'
+    input gradients), ``dw`` (every weight and bias gradient: the split-K
+    products and column sums).  A measurement: not counted as a launch."""
+    a = _Args(s, h, wr, br, wp, bp)
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(6 + 4 * a.L)]
+    for e in events:   # torch creates an event's handle at its first record
+        e.record()
+    _bwd_call(a, dz, events)
+    torch.cuda.synchronize(a.dev)
+    ms = [events[2 * k].elapsed_time(events[2 * k + 1])
+          for k in range(len(events) // 2)]
+    # pieces: recompute, projection dW/db, projection dx, then per layer
+    # its dW/db and its dx
+    return {"recompute": ms[0], "proj_dx": ms[2], "dx": sum(ms[4::2]),
+            "dw": ms[1] + sum(ms[3::2])}
 
 
 # ---------------------------------------------------------------------------
