@@ -130,12 +130,15 @@ nonzero:
              versions, conv_transpose1d and the cost of reading [B, T, d];
              the dot probe's three contractions (1e-4 of max), leading-dim
              split and pad/add/slice (bit-equal); the reshape probe's five
-             layouts (bit-equal) and its fused composition (1e-4); the
-             bf16 and int8 decode chains at L=2 and L=30, 1 and 2 steps
-             (int8 bit-equal, bf16 3e-2 of max, outputs not zero), timed
-             at L=30, STEPS=128 beside the decode kernel's per-layer time
-             from the request phase.  Each probe's launches come from its
-             timed run.
+             layouts (bit-equal; the flat copy timed per call and by
+             CUDA-graph replay beside clone, both ways) and its fused
+             composition (1e-4); the bf16 and int8 decode chains at L=2
+             and L=30, 1 and 2 steps (int8 bit-equal, bf16 3e-2 of max,
+             outputs not zero), timed at L=30, STEPS=128: each chain's ns
+             a layer and their int8/bf16 ratio beside the decode kernel's
+             ns a layer from the request phase.  Each probe's launches
+             come from its timed run (a graph capture counts once per
+             captured call, its replays not at all).
 
 The train-time phases also print each step's share of the bf16 peak by
 ``utils/flops.py::train_step_flops``.  Then one JSON line of per-kernel results and, last, the device line.
@@ -1788,9 +1791,16 @@ def probes_phase(decode_us):
         max_abs_err=rec["checks"]["composition"]["max_abs_err"],
         ms=t["composition"]["ms"], plain_ms=t["composition"]["plain_ms"],
         bound_ms=bms, bound_by=bby, library_ms=None)
-    say("probes", t0, f"reshape: 5 layouts exact, {1e3 * out['probe_reshape']['ms']:.2f} us "
-        f"in all (clone {1e3 * out['probe_reshape']['library_ms']:.2f}); "
-        f"composition {1e3 * t['composition']['ms']:.2f} us (plain "
+    g_ms = sum(t[k]["graph_ms"] for k in cases)
+    g_lib = sum(t[k]["library_graph_ms"] for k in cases)
+    say("probes", t0, f"reshape: 5 layouts exact; flat copy "
+        f"{1e3 * out['probe_reshape']['ms']:.2f} us a call in all (clone "
+        f"{1e3 * out['probe_reshape']['library_ms']:.2f}), by graph replay "
+        f"{1e3 * g_ms:.3f} us in all (clone {1e3 * g_lib:.3f}), "
+        f"{1e3 * g_ms / len(cases):.3f} us a layout; launches "
+        f"{out['probe_reshape']['launches']} (the graph capture counts "
+        f"once per captured call, its replays not at all); composition "
+        f"{1e3 * t['composition']['ms']:.2f} us (plain "
         f"{1e3 * t['composition']['plain_ms']:.2f})")
 
     t0 = time.monotonic()
@@ -1808,12 +1818,13 @@ def probes_phase(decode_us):
             ms=rec[f"{key}_ms"], plain_ms=rec[f"plain_{key}_ms"],
             bound_ms=bms, bound_by=bby, library_ms=None)
     say("probes", t0, f"decode chain L={sh['L']} STEPS={sh['STEPS']}: bf16 "
-        f"{rec['bf16_us_per_chainstep']:.3f} us/step "
-        f"({rec['per_matmul_ns_bf16']:.1f} ns/product), int8 "
-        f"{rec['int8_us_per_chainstep']:.3f} us/step "
-        f"({rec['per_matmul_ns_int8']:.1f} ns/product); the decode kernel "
-        f"{rec['decode_kernel_ns_per_layer']:.1f} ns/layer (request phase); "
-        f"bounds "
+        f"{rec['bf16_ms']:.4f} ms, {rec['bf16_us_per_chainstep']:.3f} "
+        f"us/step, {rec['per_matmul_ns_bf16']:.1f} ns a layer; int8 "
+        f"{rec['int8_ms']:.4f} ms, {rec['int8_us_per_chainstep']:.3f} "
+        f"us/step, {rec['per_matmul_ns_int8']:.1f} ns a layer; int8/bf16 "
+        f"{rec['int8_over_bf16']:.3f}; the decode kernel "
+        f"{rec['decode_kernel_ns_per_layer']:.1f} ns a layer (request "
+        f"phase); bounds "
         f"{out['chain_bf16']['bound_ms']:.4f} / "
         f"{out['chain_int8']['bound_ms']:.4f} ms (operations; the "
         f"dependency makes the chain latency-bound)")

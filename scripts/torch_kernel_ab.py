@@ -2,7 +2,7 @@
 """Time the port's training kernels and the stretch step of one source
 tree on the card, for an A/B of two commits in one call.
 
-    python3 scripts/torch_kernel_ab.py <tree> <tag>
+    python3 scripts/torch_kernel_ab.py <tree> <tag> [--only probes]
 
 ``<tree>`` is a checkout of the repository (for the other commit: a
 ``git archive`` unpacked into a directory that ``.gitignore`` lists,
@@ -21,9 +21,17 @@ inputs), then the
 steps after one warm-up, ``peak_gib``: the card memory those steps
 allocated at most), the same step with the plain decoder and head
 (``plain_step``), and the ``vctk-multi`` step at B=16 with the VQ
-kernel and the fused encoder (``vctk_enc_step``).  Run the
-two trees in turns in one call (parent, change, change, parent) so that
-both are timed on one card.  Needs one GPU; no JAX.
+kernel and the fused encoder (``vctk_enc_step``).  First, the probe
+kernels the training path does not run: the reshape probe's five
+layouts through ``upsample_cuda.relayout`` and through ``clone``, in all,
+per call (``relayout_call``, ``clone_call``: 50 calls between CUDA
+events, the host's enqueue included) and by CUDA-graph replay
+(``relayout_graph``, ``clone_graph``: the same calls captured once, the
+median of 5 replays), and the decode chains at L=30, STEPS=128 on the
+probe's data (``chain_bf16``, ``chain_int8``: ten chains); ``--only
+probes`` stops there.  Run the two trees in turns in one call (parent,
+change, change, parent) so that both are timed on one card.  Needs one
+GPU; no JAX.
 """
 
 import json
@@ -62,8 +70,64 @@ def step_ms(cfg, dev, n=3, **kw):
     return statistics.median(times), peak
 
 
+def graph_ms(fn, reps=50, replays=5):
+    """Device ms per call of fn: reps calls captured in one CUDA graph,
+    the median of `replays` replays (the probes' own ``graph_ms``, which
+    an older tree lacks)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(replays):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        graph.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / reps)
+    return statistics.median(times)
+
+
+def probe_ms(cs, dev):
+    """The relayout's and the decode chains' times (see the docstring),
+    through APIs every tree since the probes' port has."""
+    import numpy as np
+    import torch
+    from vqvae_tpu_torch.kernels import decode_chain_cuda as chn
+    from vqvae_tpu_torch.kernels import upsample_cuda as uc
+    from vqvae_tpu_torch.probes import decode_int8_micro as dim
+    from vqvae_tpu_torch.probes import reshape as rp
+    res = dict.fromkeys(("relayout_call", "clone_call", "relayout_graph",
+                         "clone_graph"), 0.0)
+    for _, src, dst in rp.CASES:
+        x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            src)).float().to(dev)
+        for key, fn in (("relayout", lambda: uc.relayout(x, dst)),
+                        ("clone", lambda: x.reshape(dst).clone())):
+            res[key + "_call"] += cs.cuda_ms(fn, reps=50)
+            res[key + "_graph"] += graph_ms(fn)
+    x, w16, w8, sc = dim.script_data(dim.L, dev)
+    res["chain_bf16"] = cs.cuda_ms(lambda: chn.chain(x, w16, dim.STEPS),
+                                   reps=10)
+    res["chain_int8"] = cs.cuda_ms(lambda: chn.chain(x, w8, dim.STEPS, sc),
+                                   reps=10)
+    return res
+
+
 def main():
-    tree, tag = os.path.abspath(sys.argv[1]), sys.argv[2]
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("tree")
+    ap.add_argument("tag")
+    ap.add_argument("--only", choices=("probes",), default=None,
+                    help="time the probe kernels alone")
+    args = ap.parse_args()
+    tree, tag = os.path.abspath(args.tree), args.tag
     os.environ["VQVAE_TORCH_BUILD_DIR"] = os.path.join(tree, "build",
                                                        "ab_" + tag)
     sys.path.insert(0, tree)
@@ -80,9 +144,13 @@ def main():
     if not wt.__file__.startswith(tree):
         sys.exit(f"imported {wt.__file__}, not the tree {tree}")
     dev = torch.device("cuda")
+    res = probe_ms(cs, dev)
+    if args.only == "probes":
+        print("AB", tag, json.dumps({k: round(v, 6) for k, v in res.items()}),
+              flush=True)
+        return
     cfg = get_config("stretch")
     mc = cfg.model
-    res = {}
     for mode in (wt.ACC, wt.EMBED):
         args, cots = cs.chunk_inputs(mode, torch.bfloat16, dev, 64, 7680, mc)
         gall = wt.fwd_kernel(*args)[2]
@@ -117,7 +185,7 @@ def main():
     res["vctk_enc_step"], _ = step_ms(vctk.replace(model=dataclasses.replace(
         vctk.model, decoder_kernel="pallas", encoder_kernel="pallas")), dev,
         impl="pallas")
-    print("AB", tag, json.dumps({k: round(v, 4) for k, v in res.items()}),
+    print("AB", tag, json.dumps({k: round(v, 6) for k, v in res.items()}),
           flush=True)
 
 

@@ -653,12 +653,14 @@ def _chain_inputs(L, dev):
     return x, w16, w8, (sc if L <= 2 else dim.held_scales(L, dev))
 
 
-@pytest.mark.parametrize("L,steps", [(2, 1), (2, 2), (30, 1), (30, 2)])
+@pytest.mark.parametrize("L,steps", [(2, 1), (2, 2), (30, 1), (30, 2),
+                                     (1, 1), (3, 5), (7, 3), (31, 2)])
 def test_decode_chain_kernels_vs_plain(cuda, L, steps):
     """int8 bit-equal to its plain version, bf16 within 3e-2 of max, on
     outputs that are not all zero, at L=2 and at the timed L=30, where
-    the weight layer and scale a product reads differ from the parity of
-    the buffer it streams into."""
+    the weight layer and scale a product reads differ from the ring
+    stage it streams into, and at depths below, at and not a multiple of
+    the ring's (6 stages bf16, 12 int8)."""
     x, w16, w8, sc = _chain_inputs(L, cuda)
     got8 = chn.chain_kernel(x, w8, steps, sc)
     want8 = chn.chain_int8_plain(x, w8, sc, steps)
@@ -668,3 +670,59 @@ def test_decode_chain_kernels_vs_plain(cuda, L, steps):
     want16 = chn.chain_bf16_plain(x, w16, steps)
     assert float(want16.float().abs().max()) > 0
     assert _rel_err(got16, want16) <= 3e-2
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_decode_chain_kernels_repeat_bit_equal(cuda, int8):
+    """Two calls of the chain give the same bits (L=30, 2 steps)."""
+    x, w16, w8, sc = _chain_inputs(30, cuda)
+    def run():
+        return chn.chain_kernel(x, w8, 2, sc) if int8 else \
+            chn.chain_kernel(x, w16, 2)
+    assert torch.equal(run(), run())
+
+
+def test_relayout_odd_sizes_and_offsets(cuda):
+    """The flat copy is exact where numel is not a multiple of 4 and
+    where x starts 1-3 floats past a 16-byte boundary (a contiguous view
+    at an odd storage offset, which .contiguous() keeps): its scalar head
+    and tail, and float stores where y is aligned otherwise than x."""
+    g = torch.Generator().manual_seed(2)
+    base = torch.randn(3 * 37 * 37 + 8, generator=g).to(cuda)
+    before = uc.launches["probe_reshape"]
+    calls = 0
+    for src, dst in (((37, 111), (111, 37)), ((37, 111), (3, 37, 37)),
+                     ((3, 37, 37), (37, 111)), ((1, 3), (3, 1)),
+                     ((2, 2, 2), (4, 2)), ((32, 64), (2048, 1))):
+        n = 1
+        for s in src:
+            n *= s
+        for off in range(4):
+            x = base[off:off + n].view(src)
+            assert x.is_contiguous() and x.storage_offset() == off
+            got = uc.relayout_kernel(x, dst)
+            calls += 1
+            assert got.shape == torch.Size(dst)
+            assert torch.equal(got, x.reshape(dst))
+    assert uc.launches["probe_reshape"] == before + calls
+
+
+def test_relayout_and_chain_capture_in_a_cuda_graph(cuda):
+    """Both wrappers launch inside a CUDA graph capture (the probes time
+    their replays), and a replay gives the eager outputs."""
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(32, 64 * 64, generator=g).to(cuda)
+    xc, w16, w8, sc = _chain_inputs(3, cuda)
+    eager = (uc.relayout_kernel(x, (32, 64, 64)),
+             chn.chain_kernel(xc, w16, 2), chn.chain_kernel(xc, w8, 2, sc))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = (uc.relayout_kernel(x, (32, 64, 64)),
+               chn.chain_kernel(xc, w16, 2), chn.chain_kernel(xc, w8, 2, sc))
+    for o in out:
+        o.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(out, eager):
+        assert torch.equal(a, b)

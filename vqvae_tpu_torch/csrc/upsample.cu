@@ -49,7 +49,7 @@
 // are the tap product, de and duw with the overlap-add off; they enter
 // tap_fwd, rows_mm and atb_win through vqvae_dot_*.  The overlap-add on
 // its own (the probe's pad/add/slice) is ola; the reshape probe's
-// layouts are relayout, its matmul -> untile -> matmul composition is
+// layouts are flat_copy, its matmul -> untile -> matmul composition is
 // compose, whose [N, hop*d] intermediate stays in shared memory.
 #include "train_common.cuh"
 
@@ -417,44 +417,56 @@ __global__ void ola(int hop, int off, int Trows, int d,
   y[i] = fromf<T>(v);
 }
 
-// The reshape probe's five layouts: a tile of RL elements is read in the
-// input's shape (rank RI, dims in[]) into shared memory and written out
-// in the output's (rank RO, dims out[]).  Every case is a row-major
-// reshape, so the value is an exact copy; the index math is the probe.
-constexpr int RL = 4096;   // elements per tile (16 KB of float32)
-struct Dims { int n[3]; };
+// The reshape probe's five layouts (and the dot probe's leading split).
+// Each is a row-major reshape of a contiguous tensor, which keeps the flat
+// order, so on linear memory the function is a flat copy (on the TPU it
+// needed a real relayout of Mosaic's tiles).  A grid-stride copy of
+// 16-byte pieces (ld.global.nc.v4, st.global.v4): `head` floats are
+// copied one by one until x is 16-byte aligned, then whole float4s, then
+// the tail; y takes float4 stores where it is aligned like x (VS), else
+// four float stores.  No shared memory, no index math.  Bound: the bytes
+// (0.5 MB in and out a layout at the probe's shape: 0.31 us at
+// 3.35 TB/s), so in practice the launch.
+constexpr int FT = 128;   // flat_copy: threads a block
 
-template <int R>
-__device__ __forceinline__ long long flat_of(const Dims& s, long long i) {
-  // the row-major coordinates of flat index i, folded back: the case's
-  // addressing, which the compiler keeps as divisions by the dims
-  int c[3];
-  long long r = i;
-#pragma unroll
-  for (int a = R - 1; a >= 0; --a) {
-    c[a] = (int)(r % s.n[a]);
-    r /= s.n[a];
+template <typename I, bool VS>
+__global__ void __launch_bounds__(FT)
+    flat_copy(I nv, int head, int tail, const float* __restrict__ x,
+              float* __restrict__ y) {
+  const I i0 = (I)blockIdx.x * FT + threadIdx.x, stride = (I)gridDim.x * FT;
+  const float4* xv = reinterpret_cast<const float4*>(x + head);
+  float* yv = y + head;
+  for (I v = i0; v < nv; v += stride) {
+    const float4 f = __ldg(xv + v);
+    if constexpr (VS) {
+      reinterpret_cast<float4*>(yv)[v] = f;
+    } else {
+      yv[4 * v] = f.x;
+      yv[4 * v + 1] = f.y;
+      yv[4 * v + 2] = f.z;
+      yv[4 * v + 3] = f.w;
+    }
   }
-  long long f = c[0];
-#pragma unroll
-  for (int a = 1; a < R; ++a) f = f * s.n[a] + c[a];
-  return f;
+  if (i0 < head) y[i0] = x[i0];
+  if (i0 < tail) yv[4 * nv + i0] = x[head + 4 * nv + i0];
 }
 
-template <int RI, int RO>
-__global__ void relayout(long long total, Dims in, Dims out,
-                         const float* __restrict__ x, float* __restrict__ y) {
-  float* tile = smem;
-  const long long base = (long long)blockIdx.x * RL;
-  for (int j = threadIdx.x; j < RL; j += NT) {
-    const long long i = base + j;
-    if (i < total) tile[j] = x[flat_of<RI>(in, i)];
+template <typename I>
+int run_flat_copy(long long n, const float* x, float* y, cudaStream_t st) {
+  const int head = (int)std::min<long long>(
+      n, ((16 - (reinterpret_cast<uintptr_t>(x) & 15)) & 15) / 4);
+  const I nv = (I)((n - head) / 4);
+  const int tail = (int)(n - head - 4 * (long long)nv);
+  const int grid = (int)std::max<long long>(
+      1, std::min<long long>(cdiv(nv, FT), 8LL * num_sms()));
+  if (reinterpret_cast<uintptr_t>(y + head) % 16 == 0) {
+    auto k = flat_copy<I, true>;
+    KLAUNCH(k, grid, FT, 0, st, nv, head, tail, x, y);
+  } else {
+    auto k = flat_copy<I, false>;
+    KLAUNCH(k, grid, FT, 0, st, nv, head, tail, x, y);
   }
-  __syncthreads();
-  for (int j = threadIdx.x; j < RL; j += NT) {
-    const long long i = base + j;
-    if (i < total) y[flat_of<RO>(out, i)] = tile[j];
-  }
+  return (int)last_error();
 }
 
 // out[n*hop + r, j] = sum_c (sum_i x[n, i] w[i, r*d + c]) v[c, j]: the
@@ -712,33 +724,13 @@ int vqvae_ola(int dtype, int Trows, int hop, int off, int d, const void* x,
   });
 }
 
-// A reshape of float32 x (rank ri, dims in[0..ri)) into y (rank ro, dims
-// out[0..ro)), through a shared-memory tile in each shape.
-int vqvae_relayout(int ri, const int* in, int ro, const int* out,
-                   const float* x, float* y, void* stream) {
-  if (ri < 2 || ri > 3 || ro < 2 || ro > 3) return -2;
-  Dims di{{1, 1, 1}}, dout{{1, 1, 1}};
-  long long ni = 1, no = 1;
-  for (int a = 0; a < ri; ++a) ni *= (di.n[a] = in[a]);
-  for (int a = 0; a < ro; ++a) no *= (dout.n[a] = out[a]);
-  if (ni != no || ni < 1) return -2;
+// y [n] = x [n], float32 (a reshape of contiguous x: see flat_copy); x and
+// y 4-byte aligned.
+int vqvae_relayout(long long n, const float* x, float* y, void* stream) {
+  if (n < 1) return -2;
   cudaStream_t st = (cudaStream_t)stream;
-  const int grid = cdiv(ni, RL);
-  const size_t sm = RL * sizeof(float);
-  if (ri == 2 && ro == 2) {
-    auto k = relayout<2, 2>;
-    KLAUNCH(k, grid, NT, sm, st, ni, di, dout, x, y);
-  } else if (ri == 2) {
-    auto k = relayout<2, 3>;
-    KLAUNCH(k, grid, NT, sm, st, ni, di, dout, x, y);
-  } else if (ro == 2) {
-    auto k = relayout<3, 2>;
-    KLAUNCH(k, grid, NT, sm, st, ni, di, dout, x, y);
-  } else {
-    auto k = relayout<3, 3>;
-    KLAUNCH(k, grid, NT, sm, st, ni, di, dout, x, y);
-  }
-  return (int)last_error();
+  return n < (1LL << 31) ? run_flat_copy<int>(n, x, y, st)
+                         : run_flat_copy<long long>(n, x, y, st);
 }
 
 // out [N*hop, E] = ((x [N, d] @ w [d, hop*d]).reshape(N*hop, d)) @ v [d, E],

@@ -1,10 +1,11 @@
-"""What the probes share: the device, CUDA-event timing, errors and the
-JSON line."""
+"""What the probes share: the device, CUDA-event timing (per call and
+by CUDA-graph replay), errors and the JSON line."""
 
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 
 import torch
 
@@ -47,6 +48,34 @@ def cuda_ms(fn, dev: torch.device, reps: int = 10):
     e1.record()
     torch.cuda.synchronize(dev)
     return e0.elapsed_time(e1) / reps
+
+
+def graph_ms(fn, dev: torch.device, reps: int = 10, replays: int = 5):
+    """Device milliseconds per call of fn: ``reps`` calls captured in one
+    ``torch.cuda.CUDAGraph`` (after one eager warm-up call), replayed
+    ``replays`` times between CUDA events after a warm-up replay; the
+    median replay over ``reps``.  A replay launches only the kernels, so
+    this is the card's time without the host's.  Capturing runs fn once
+    per captured call, so kernel launch counters count the capture, not
+    the replays.  None off the card."""
+    if dev.type != "cuda":
+        return None
+    fn()
+    torch.cuda.synchronize(dev)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(replays):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        graph.replay()
+        e1.record()
+        torch.cuda.synchronize(dev)
+        times.append(e0.elapsed_time(e1) / reps)
+    return statistics.median(times)
 
 
 def errors(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:

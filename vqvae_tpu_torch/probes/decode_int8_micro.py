@@ -19,7 +19,9 @@ after two).  Then both are timed at the script's L=30, STEPS=128 (CUDA
 events) beside their plain versions, and the script's numbers are
 printed: µs per chain step and ns per product, with the decode kernel's
 per-layer time for comparison when ``--decode-us`` gives its measured µs
-per step.  The last line is one JSON object.
+per step; ``per_matmul_ns_*`` is each chain's ns a layer, and
+``int8_over_bf16`` the ratio of the two chains' times, the probe's
+answer.  The last line is one JSON object.
 """
 
 from __future__ import annotations
@@ -110,13 +112,17 @@ def main(argv=None) -> None:
             "per_matmul_ns_int8": 1e6 * t8 / STEPS / L,
             "bf16_ms": t16, "int8_ms": t8,
             "plain_bf16_ms": p16, "plain_int8_ms": p8,
+            "int8_over_bf16": t8 / t16,
             "bf16_out_max": float(out16.float().abs().max()),
             "int8_out_max": float(out8.float().abs().max())})
         if args.decode_us is not None:
             record["decode_kernel_ns_per_layer"] = 1e3 * args.decode_us / L
+        print(f"ns a layer: bf16 {record['per_matmul_ns_bf16']:.1f}, int8 "
+              f"{record['per_matmul_ns_int8']:.1f}; int8 / bf16 "
+              f"{t8 / t16:.3f}", flush=True)
         emit({k: record[k] for k in (
             "bf16_us_per_chainstep", "int8_us_per_chainstep",
-            "per_matmul_ns_bf16", "per_matmul_ns_int8",
+            "per_matmul_ns_bf16", "per_matmul_ns_int8", "int8_over_bf16",
             "decode_kernel_ns_per_layer") if k in record})
     finish(record, checks)
 

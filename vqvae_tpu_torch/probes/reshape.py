@@ -5,14 +5,19 @@
 
 At the script's shapes (N 32, hop 64, d 64, float32) each of its five
 reshapes runs through the relayout kernel of ``csrc/upsample.cu`` (a
-tile read into shared memory in the input's shape, written out in the
-output's) and must equal ``x.reshape`` bit for bit; the composition
+row-major reshape keeps the flat order, so on the card it is a flat
+16-byte copy) and must equal ``x.reshape`` bit for bit; the composition
 ``((x @ w).reshape(N·hop, d)) @ v`` runs as one fused kernel whose
 ``[N, hop·d]`` intermediate never reaches device memory, within 1e-4 of
 max of the two plain products.  Then each is timed (CUDA events) beside
 its plain version and, for the reshapes, one ``clone`` of the reshaped
-view (none exists for the composition, which needs two calls).  The last
-line is one JSON object.
+view (none exists for the composition, which needs two calls): per call
+(``ms``, ``library_ms``: 50 calls between two events, the host's enqueue
+included) and, for the reshapes, by CUDA-graph replay (``graph_ms``,
+``library_graph_ms``: the same 50 calls captured once and replayed, the
+card's time alone).  ``launches`` counts the kernel's calls in the timed
+run; the graph capture counts once per captured call, its replays not at
+all.  The last line is one JSON object.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from vqvae_tpu_torch.probes._common import (
     cuda_ms,
     device_name,
     finish,
+    graph_ms,
     resolve_device,
 )
 
@@ -74,7 +80,9 @@ def main(argv=None) -> None:
         t = record["times"]
         for (name, _, dst), xx in zip(CASES, xs):
             t[name] = {"ms": cuda_ms(lambda: uc.relayout(xx, dst), dev,
-                                     REPS)}
+                                     REPS),
+                       "graph_ms": graph_ms(lambda: uc.relayout(xx, dst),
+                                            dev, REPS)}
         t["composition"] = {"ms": cuda_ms(lambda: uc.compose(x, w, v, HOP),
                                           dev, REPS)}
         record["launches"] = dict(uc.launches)
@@ -82,12 +90,17 @@ def main(argv=None) -> None:
             # the plain version is a reshape and a clone: the library call
             t[name]["plain_ms"] = t[name]["library_ms"] = cuda_ms(
                 lambda: uc.relayout_plain(xx, dst), dev, REPS)
+            t[name]["library_graph_ms"] = graph_ms(
+                lambda: uc.relayout_plain(xx, dst), dev, REPS)
         t["composition"].update(
             plain_ms=cuda_ms(lambda: uc.compose_plain(x, w, v, HOP), dev,
                              REPS), library_ms=None)
         for name, r in t.items():
             print(f"{name}: kernel {1e3 * r['ms']:.2f} us, plain "
-                  f"{1e3 * r['plain_ms']:.2f} us", flush=True)
+                  f"{1e3 * r['plain_ms']:.2f} us a call"
+                  + (f"; graph replay: kernel {1e3 * r['graph_ms']:.3f} us,"
+                     f" clone {1e3 * r['library_graph_ms']:.3f} us"
+                     if "graph_ms" in r else ""), flush=True)
     finish(record, checks)
 
 
