@@ -126,8 +126,11 @@ nonzero:
              forward and backward kernels against upsample_apply and its
              autograd at the probe's shapes, and against their plain
              versions at vctk-multi width, B=16 and B=64, float32 and
-             bfloat16 (1e-4 / 3e-2 of max), timed beside the plain
-             versions, conv_transpose1d and the cost of reading [B, T, d];
+             bfloat16 (1e-4 / 3e-2 of max; a second call the same
+             bits), timed per call and by CUDA-graph replay, each as a
+             share of its bound, the backward's two launches apart (CUDA
+             events), beside the plain versions, conv_transpose1d and the
+             cost of reading [B, T, d];
              the dot probe's three contractions (1e-4 of max), leading-dim
              split and pad/add/slice (bit-equal); the reshape probe's five
              layouts (bit-equal; the flat copy timed per call and by
@@ -1735,13 +1738,21 @@ def probes_phase(decode_us):
                    peak)
         bb = bound(*upsample_work(B, r["Tl"], r["hop"], r["d"], es, True),
                    peak)
+        sp = r["bwd_split_ms"]
         say("probes", t0, f"cond {dt} B={B}: forward {r['fwd_ms']:.4f} ms "
-            f"(bound {bf[0]:.4f}, {bf[1]}; plain {r['plain_fwd_ms']:.4f}; "
-            f"conv_transpose1d {r['library_fwd_ms']:.4f}); backward "
-            f"{r['bwd_ms']:.4f} ms (bound {bb[0]:.4f}, {bb[1]}; plain "
-            f"{r['plain_bwd_ms']:.4f}; autograd {r['library_bwd_ms']:.4f}); "
-            f"reading cond: {r['read_bound_ms']:.4f} ms at 3.35 TB/s, "
-            f"copy_ {r['copy_ms']:.4f} ms")
+            f"a call, {r['fwd_graph_ms']:.4f} on the card (bound "
+            f"{bf[0]:.4f}, {bf[1]}: {100 * bf[0] / r['fwd_ms']:.1f}% of a "
+            f"call, {100 * bf[0] / r['fwd_graph_ms']:.1f}% of the card's "
+            f"time; plain {r['plain_fwd_ms']:.4f}; conv_transpose1d "
+            f"{r['library_fwd_ms']:.4f}); backward {r['bwd_ms']:.4f} ms a "
+            f"call, {r['bwd_graph_ms']:.4f} on the card (bound "
+            f"{bb[0]:.4f}, {bb[1]}: {100 * bb[0] / r['bwd_ms']:.1f}%, "
+            f"{100 * bb[0] / r['bwd_graph_ms']:.1f}%; its two launches by "
+            f"CUDA events: tiles {sp['tiles']:.4f}, reduce "
+            f"{sp['reduce']:.4f}; plain {r['plain_bwd_ms']:.4f}; autograd "
+            f"{r['library_bwd_ms']:.4f}); reading cond: "
+            f"{r['read_bound_ms']:.4f} ms at 3.35 TB/s, copy_ "
+            f"{r['copy_ms']:.4f} ms")
         if (B, dt) == (16, "bfloat16"):
             main_run, bounds = r, (bf, bb)
     errs = {k: max((row["max_abs_err"] for key, row in rec["checks"].items()

@@ -28,8 +28,12 @@ per call (``relayout_call``, ``clone_call``: 50 calls between CUDA
 events, the host's enqueue included) and by CUDA-graph replay
 (``relayout_graph``, ``clone_graph``: the same calls captured once, the
 median of 5 replays), and the decode chains at L=30, STEPS=128 on the
-probe's data (``chain_bf16``, ``chain_int8``: ten chains); ``--only
-probes`` stops there.  Run the two trees in turns in one call (parent,
+probe's data (``chain_bf16``, ``chain_int8``: ten chains), and the
+upsampler's forward and backward at vctk-multi width on the cond probe's
+inputs, B=16 and B=64, bfloat16 and float32 (``cond_fwd_bf16_16`` ...:
+20 calls between CUDA events, the host's enqueue included, and
+``..._graph``: by CUDA-graph replay, the card's time alone; null where
+that tree's kernels cannot be captured); ``--only probes`` stops there.  Run the two trees in turns in one call (parent,
 change, change, parent) so that both are timed on one card.  Needs one
 GPU; no JAX.
 """
@@ -116,6 +120,42 @@ def probe_ms(cs, dev):
                                    reps=10)
     res["chain_int8"] = cs.cuda_ms(lambda: chn.chain(x, w8, dim.STEPS, sc),
                                    reps=10)
+    res.update(cond_ms(cs, dev))
+    return res
+
+
+def cond_ms(cs, dev):
+    """The upsampler pair's times (see the docstring) through
+    ``uc.cond_forward`` and ``uc.cond_backward``, which every tree since
+    the probes' port has; the inputs are the cond probe's
+    (``probes/cond_inkernel.py::full_width``, seed 0)."""
+    import torch
+    from vqvae_tpu_torch.configs import get_config
+    from vqvae_tpu_torch.kernels import upsample_cuda as uc
+    mc = get_config("vctk-multi")
+    hop, d, T = mc.model.hop, mc.model.d, mc.data.length
+    res = {}
+    for B in (16, 64):
+        for cdt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            g = torch.Generator().manual_seed(0)
+            w = torch.randn(2 * hop, d, d, generator=g) * (2 * hop * d) ** -0.5
+            bb = torch.randn(d, generator=g) * 0.1
+            uwk, ub = uc.pack_upsampler(w, bb)
+            e = torch.randn(B, T // hop, d, generator=g).to(dev, cdt)
+            dcond = (torch.randn(B, T, d, generator=g) * 0.01).to(dev)
+            uwk, ub = uwk.to(dev, cdt), ub.to(dev)
+            for key, fn in (
+                    ("cond_fwd", lambda: uc.cond_forward(e, uwk, ub, hop)),
+                    ("cond_bwd", lambda: uc.cond_backward(dcond, e, uwk,
+                                                          hop))):
+                name = f"{key}_{tag}_{B}"
+                res[name] = cs.cuda_ms(fn, reps=20)
+                try:
+                    res[name + "_graph"] = graph_ms(fn, reps=20)
+                except RuntimeError:
+                    res[name + "_graph"] = None
+            del e, dcond
+            torch.cuda.empty_cache()
     return res
 
 
@@ -146,8 +186,8 @@ def main():
     dev = torch.device("cuda")
     res = probe_ms(cs, dev)
     if args.only == "probes":
-        print("AB", tag, json.dumps({k: round(v, 6) for k, v in res.items()}),
-              flush=True)
+        print("AB", tag, json.dumps({k: None if v is None else round(v, 6)
+                                     for k, v in res.items()}), flush=True)
         return
     cfg = get_config("stretch")
     mc = cfg.model
@@ -185,8 +225,8 @@ def main():
     res["vctk_enc_step"], _ = step_ms(vctk.replace(model=dataclasses.replace(
         vctk.model, decoder_kernel="pallas", encoder_kernel="pallas")), dev,
         impl="pallas")
-    print("AB", tag, json.dumps({k: round(v, 6) for k, v in res.items()}),
-          flush=True)
+    print("AB", tag, json.dumps({k: None if v is None else round(v, 6)
+                                 for k, v in res.items()}), flush=True)
 
 
 if __name__ == "__main__":

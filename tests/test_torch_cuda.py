@@ -582,11 +582,58 @@ def test_cond_upsample_kernels_vs_plain(cuda, cdt, B, Tl):
 @pytest.mark.parametrize("B", [16, 64])
 def test_cond_backward_scratch_follows_the_split_policy(cuda, B):
     """The backward's scratch at vctk-multi width (T=7680) comes from the
-    kernel library's split policy: a few split-K copies of duw, not one
-    per possible split."""
+    kernel library's split policy (``upsample_cuda.bwd_split`` mirrors
+    it): the runs' dW slices and column sums and the column groups' X,
+    under dcond's own size."""
     part = uc._scratch("cond_bwd", B, 120, 64, 64, device=cuda)
-    duw = 64 * 2 * 64 * 64
-    assert duw <= part.numel() <= 8 * duw
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert part.numel() == uc.bwd_scratch(B, 120, 64, 64, sms)
+    assert part.numel() < B * 120 * 64 * 64
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 3, 16])
+@pytest.mark.parametrize("Tl", [1, 17, 120])
+@pytest.mark.parametrize("d", [16, 64])
+def test_cond_kernels_grid_vs_plain(cuda, cdt, B, Tl, d):
+    """Both upsampler kernels against their plain versions within 1e-4
+    (float32) / 3e-2 (bfloat16) of max, at frame counts that are not
+    multiples of the 64-row tile (Tl + 1 = 2, 18, 121), one batch row,
+    and d = 16 (eight slices, two clusters) as well as 64; a second call
+    gives the same bits."""
+    e, uwk, ub, dcond = _cond_inputs(cdt, cuda, B, Tl, d=d)
+    got = uc.cond_fwd_kernel(e, uwk, ub, 64)
+    grads = uc.cond_bwd_kernel(dcond, e, uwk, 64)
+    assert _rel_err(got, uc.cond_fwd_plain(e, uwk, ub, 64)) <= TRAIN_TOL[cdt]
+    for a, b in zip(grads, uc.cond_bwd_plain(dcond, e, uwk, 64)):
+        assert _rel_err(a, b) <= TRAIN_TOL[cdt]
+    assert torch.equal(uc.cond_fwd_kernel(e, uwk, ub, 64), got)
+    for a, b in zip(uc.cond_bwd_kernel(dcond, e, uwk, 64), grads):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("hop,d", [(6, 32), (2, 16), (8, 48)])
+def test_cond_kernels_partial_slices_vs_plain(cuda, hop, d):
+    """hop·d not a multiple of the 128-column slice (192, 32, 384 columns;
+    a cluster of 2, 1 and 3 blocks), bfloat16 and float32."""
+    for cdt in (torch.float32, torch.bfloat16):
+        e, uwk, ub, dcond = _cond_inputs(cdt, cuda, 3, 21, hop=hop, d=d)
+        got = uc.cond_fwd_kernel(e, uwk, ub, hop)
+        assert _rel_err(got, uc.cond_fwd_plain(e, uwk, ub, hop)) <= \
+            TRAIN_TOL[cdt]
+        for a, b in zip(uc.cond_bwd_kernel(dcond, e, uwk, hop),
+                        uc.cond_bwd_plain(dcond, e, uwk, hop)):
+            assert _rel_err(a, b) <= TRAIN_TOL[cdt]
+
+
+def test_cond_backward_split_ms_times_both_launches(cuda):
+    """The backward's split by CUDA events names its two launches, each
+    timed, and does not count as a launch."""
+    e, uwk, _, dcond = _cond_inputs(torch.bfloat16, cuda, 16, 120)
+    before = uc.launches["cond_bwd"]
+    ms = uc.cond_bwd_split_ms(dcond, e, uwk, 64)
+    assert set(ms) == {"tiles", "reduce"} and min(ms.values()) > 0
+    assert uc.launches["cond_bwd"] == before
 
 
 def test_cond_upsample_equals_upsample_apply(cuda):

@@ -15,6 +15,14 @@ overlap-add adjoint ``da`` to e's dtype for the products (as the probe's
 ``da_c``) and returns float32 ``de = da @ uwkᵀ``, ``duw = eᵀ @ da`` and
 ``dub = Σ dcond``.
 
+The kernels compute one product over output frames (``frame_rows``,
+``frame_values``, ``tap_weight``): the forward's blocks each keep a slice
+of ``US`` columns of the packed weight in shared memory
+(``tap_slices``); the backward splits its frame rows into runs and its
+columns into clusters of slices, and adds the partial sums in a fixed
+order (``bwd_split``; ``cond_bwd_partitioned`` is that order in plain
+PyTorch).
+
 ``cond_upsample`` is a ``torch.autograd.Function``.  Every wrapper here
 runs the plain version for CPU tensors and launches its kernel (or
 raises) for CUDA tensors; ``launches`` counts kernel calls by name.  The
@@ -93,6 +101,135 @@ def cond_bwd_plain(dcond, e, uwk, hop: int):
 
 
 # ---------------------------------------------------------------------------
+# the kernels' frame product and partition, in plain PyTorch
+# (csrc/upsample.cu, "Frames"; the CPU tests hold these against the plain
+# versions above)
+# ---------------------------------------------------------------------------
+
+US = 128   # columns of W a kernel block keeps in shared memory
+UR = 64    # frame rows a tile; the backward's runs are multiples of it
+UCS = 4    # the backward's blocks a cluster
+
+
+def tap_weight(uwk, hop: int) -> torch.Tensor:
+    """W ``[2d, hop·d]`` with ``W[k, n] = uwk[k % d, (k // d)·hop·d + n]``:
+    the weight of the frame product (rows k < d meet e[u], the others
+    e[u-1])."""
+    d = uwk.shape[0]
+    return torch.cat([uwk[:, :hop * d], uwk[:, hop * d:]], 0)
+
+
+def tap_slices(uwk, hop: int) -> torch.Tensor:
+    """``[ceil(hop·d / US), 2d, US]``: slice s holds W's columns s·US ...
+    (0 past hop·d), what a kernel block keeps in shared memory."""
+    W = tap_weight(uwk, hop)
+    K2, N = W.shape
+    ns = -(-N // US)
+    return F.pad(W, (0, ns * US - N)).reshape(K2, ns, US).permute(1, 0, 2)
+
+
+def frame_rows(e) -> torch.Tensor:
+    """A ``[B·(Tl+1), 2d]``: row b·(Tl+1) + u is [e[b, u], e[b, u-1]], a
+    frame outside [0, Tl) read as 0."""
+    B, Tl, d = e.shape
+    z = e.new_zeros(B, 1, d)
+    return torch.cat([torch.cat([e, z], 1), torch.cat([z, e], 1)],
+                     2).reshape(B * (Tl + 1), 2 * d)
+
+
+def frame_values(x, hop: int) -> torch.Tensor:
+    """D ``[B·(Tl+1), hop·d]`` from x ``[B, Tl·hop, d]``: row b·(Tl+1) + u
+    holds rows u·hop - hop/2 + j, j < hop, of x[b] (0 outside it)."""
+    B, T, d = x.shape
+    return F.pad(x, (0, 0, hop // 2, hop - hop // 2)).reshape(
+        B * (T // hop + 1), hop * d)
+
+
+def cond_fwd_frames(e, uwk, ub, hop: int) -> torch.Tensor:
+    """cond as the forward kernel computes it: D = A W + ub (float32
+    sums), cropped, rounded once to e's dtype."""
+    B, Tl, d = e.shape
+    D = _mm(frame_rows(e), tap_weight(uwk.to(e.dtype), hop)) + \
+        ub.float().reshape(d).repeat(hop)
+    return D.reshape(B, (Tl + 1) * hop, d)[
+        :, hop // 2: hop // 2 + Tl * hop].to(e.dtype)
+
+
+def bwd_split(B: int, Tl: int, hop: int, d: int, sms: int = 132,
+              clusters: int | None = None):
+    """The backward kernel's split (``csrc/upsample.cu::bwd_split``):
+    (blocks a cluster, column groups, runs, frame rows a run) on a card
+    of ``sms`` SMs that holds ``clusters`` clusters at once."""
+    N, M = hop * d, B * (Tl + 1)
+    nslices = -(-N // US)
+    cs = min(UCS, nslices)
+    ngroups, ntiles = -(-nslices // cs), -(-M // UR)
+    clusters = sms if clusters is None else clusters
+    nruns = min(max(1, min(clusters, sms // cs) // ngroups), ntiles)
+    per = -(-ntiles // nruns)
+    return cs, ngroups, -(-ntiles // per), per * UR
+
+
+def bwd_scratch(B: int, Tl: int, hop: int, d: int, sms: int = 132) -> int:
+    """Float32 values of the backward's partials at that split: the runs'
+    dW and column sums, the column groups' X."""
+    _, ngroups, nruns, _ = bwd_split(B, Tl, hop, d, sms)
+    N, K2 = hop * d, 2 * d
+    return nruns * K2 * N + ngroups * B * (Tl + 1) * K2 + nruns * N
+
+
+def cond_bwd_partitioned(dcond, e, uwk, hop: int, sms: int = 132):
+    """(de, duw, dub) as the backward kernels split and add them: each
+    block (run, slice) the products of its rows and columns, its
+    cluster's X added in rank order, then the runs' dW and the groups' X
+    in order, the column sums by a warp's lanes and its shuffle tree
+    (float32; D rounded to e's dtype once)."""
+    B, Tl, d = e.shape
+    N, M, K2 = hop * d, B * (Tl + 1), 2 * d
+    cs, ngroups, nruns, rpr = bwd_split(B, Tl, hop, d, sms)
+    Dr = frame_values(dcond.float(), hop)
+    Dc = Dr.to(e.dtype).float()
+    A = frame_rows(e).float()
+    W = tap_weight(uwk.to(e.dtype), hop).float()
+    dwp = Dr.new_zeros(nruns, K2, N)
+    dubp = Dr.new_zeros(nruns, N)
+    xp = Dr.new_zeros(ngroups, M, K2)
+    for run in range(nruns):
+        rows = slice(run * rpr, min(M, (run + 1) * rpr))
+        for grp in range(ngroups):
+            x = None
+            for rank in range(cs):
+                cols = slice((grp * cs + rank) * US,
+                             min(N, (grp * cs + rank + 1) * US))
+                if cols.start >= N:
+                    continue
+                dwp[run, :, cols] = A[rows].T @ Dc[rows, cols]
+                dubp[run, cols] = Dr[rows, cols].sum(0)
+                part = Dc[rows, cols] @ W[:, cols].T
+                x = part if x is None else x + part
+            xp[grp, rows] = x
+    dw, X = dwp[0], xp[0]
+    for run in range(1, nruns):
+        dw = dw + dwp[run]
+    for grp in range(1, ngroups):
+        X = X + xp[grp]
+    X = X.reshape(B, Tl + 1, K2)
+    de = X[:, :Tl, :d] + X[:, 1:, d:]
+    # dub: lane l of a warp sums runs, then hop offsets l, l + 32, ...;
+    # then the shuffle tree (xor 16, 8, 4, 2, 1)
+    lanes = []
+    for lane in range(32):
+        s = Dr.new_zeros(d)
+        for run in range(nruns):
+            for j in range(lane, hop, 32):
+                s = s + dubp[run, j * d:(j + 1) * d]
+        lanes.append(s)
+    for o in (16, 8, 4, 2, 1):
+        lanes = [lanes[i] + lanes[i ^ o] for i in range(32)]
+    return de, torch.cat([dw[:d], dw[d:]], 1), lanes[0]
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
 
@@ -107,7 +244,7 @@ def _library():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         sigs = {
             "vqvae_cond_fwd": [i] * 5 + [p] * 5,
-            "vqvae_cond_bwd": [i] * 5 + [p] * 7 + [ll, p],
+            "vqvae_cond_bwd": [i] * 5 + [p] * 7 + [ll, p, p],
             "vqvae_dot_nre": [i] * 4 + [p] * 4,
             "vqvae_dot_ne": [i] * 4 + [p] * 4 + [ll, p],
             "vqvae_dot_dre": [i] * 4 + [p] * 4 + [ll, p],
@@ -161,6 +298,13 @@ def _check_width(d: int) -> None:
                          f"of 16, got {d}")
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous at a 16-byte aligned address (the kernels copy 16
+    bytes at a time)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def cond_fwd_kernel(e, uwk, ub, hop: int) -> torch.Tensor:
     """The kernel's cond; see ``cond_fwd_plain``."""
     B, Tl, d = e.shape
@@ -170,8 +314,8 @@ def cond_fwd_kernel(e, uwk, ub, hop: int) -> torch.Tensor:
         raise ValueError(f"uwk must be [{d}, {2 * hop * d}] and ub [{d}] "
                          f"with an even hop, got {tuple(uwk.shape)}, "
                          f"{tuple(ub.shape)}, hop {hop}")
-    e = e.contiguous()
-    uwk = uwk.to(e.dtype).contiguous()
+    e = _aligned(e)
+    uwk = _aligned(uwk.to(e.dtype))
     ub = ub.float().reshape(d).contiguous()
     cond = torch.empty(B, Tl * hop, d, dtype=e.dtype, device=e.device)
     _call("vqvae_cond_fwd", "cond_fwd", _CDTYPE[e.dtype], B, Tl, hop, d,
@@ -180,8 +324,9 @@ def cond_fwd_kernel(e, uwk, ub, hop: int) -> torch.Tensor:
     return cond
 
 
-def cond_bwd_kernel(dcond, e, uwk, hop: int):
-    """The kernel's (de, duw, dub); see ``cond_bwd_plain``."""
+def _cond_bwd_call(dcond, e, uwk, hop: int, events=None):
+    """One call of the backward's two kernels (``events``: four CUDA
+    events recorded around them, see ``cond_bwd_split_ms``)."""
     B, Tl, d = e.shape
     _check(e.dtype, dcond, e, uwk)
     _check_width(d)
@@ -191,18 +336,44 @@ def cond_bwd_kernel(dcond, e, uwk, hop: int):
                          f"[{d}, {2 * hop * d}], got {tuple(dcond.shape)}, "
                          f"{tuple(uwk.shape)}")
     f32 = torch.float32
-    dcond = dcond.to(f32).contiguous()
-    e = e.contiguous()
-    uwk = uwk.to(e.dtype).contiguous()
+    dcond = _aligned(dcond.to(f32))
+    e = _aligned(e)
+    uwk = _aligned(uwk.to(e.dtype))
     de = torch.empty(B, Tl, d, dtype=f32, device=e.device)
     duw = torch.empty(d, 2 * hop * d, dtype=f32, device=e.device)
     dub = torch.empty(d, dtype=f32, device=e.device)
     part = _scratch("cond_bwd", B, Tl, hop, d, device=e.device)
-    _call("vqvae_cond_bwd", "cond_bwd", _CDTYPE[e.dtype], B, Tl, hop, d,
-          dcond.data_ptr(), e.data_ptr(), uwk.data_ptr(), de.data_ptr(),
-          duw.data_ptr(), dub.data_ptr(), part.data_ptr(), part.numel(),
-          _stream(e))
+    ev = None
+    if events is not None:
+        ev = (ctypes.c_void_p * len(events))(*(x.cuda_event for x in events))
+    err = _library().vqvae_cond_bwd(
+        _CDTYPE[e.dtype], B, Tl, hop, d, dcond.data_ptr(), e.data_ptr(),
+        uwk.data_ptr(), de.data_ptr(), duw.data_ptr(), dub.data_ptr(),
+        part.data_ptr(), part.numel(), _stream(e), ev)
+    if err != 0:
+        raise RuntimeError(f"vqvae_cond_bwd failed: error {err} (-2: shapes "
+                           f"the kernel does not take; -3: no cluster fits)")
     return de, duw, dub
+
+
+def cond_bwd_kernel(dcond, e, uwk, hop: int):
+    """The kernels' (de, duw, dub); see ``cond_bwd_plain``."""
+    out = _cond_bwd_call(dcond, e, uwk, hop)
+    launches["cond_bwd"] += 1
+    return out
+
+
+def cond_bwd_split_ms(dcond, e, uwk, hop: int) -> dict:
+    """Milliseconds of one backward call by launch, from CUDA events
+    recorded around them: ``tiles`` (the pass over dcond) and ``reduce``
+    (the partial sums added).  A measurement: not counted as a launch."""
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    for x in events:   # torch creates an event's handle at its first record
+        x.record()
+    _cond_bwd_call(dcond, e, uwk, hop, events)
+    torch.cuda.synchronize(e.device)
+    return {"tiles": events[0].elapsed_time(events[1]),
+            "reduce": events[2].elapsed_time(events[3])}
 
 
 def _on_card(t: torch.Tensor) -> bool:

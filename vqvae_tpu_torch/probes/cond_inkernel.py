@@ -11,9 +11,13 @@ the port's ``ops/conv.py::upsample_apply`` and its autograd, as the JAX
 script holds its Pallas bodies against ``upsample_apply`` and
 ``jax.vjp``.  With ``--batch`` it runs vctk-multi's upsampler at full
 width (``w [2·hop, d, d]``, T = 7680) for each batch, in bf16 and in
-float32: the kernels against their plain versions (1e-4 / 3e-2 of max),
-then times
-(CUDA events) the forward and the backward beside the plain versions,
+float32: the kernels against their plain versions (1e-4 / 3e-2 of max)
+and a second call against the first (the same bits), then times (CUDA
+events) the forward and the backward per call (``fwd_ms``, ``bwd_ms``:
+the host's enqueue included) and by CUDA-graph replay
+(``fwd_graph_ms``, ``bwd_graph_ms``: the card's time alone), the
+backward's two launches apart (``bwd_split_ms``), beside the plain
+versions,
 beside one library call that computes the same function
 (``conv_transpose1d`` with stride hop and 2·hop taps, cropped by a view,
 and its autograd backward; a yardstick only) and beside the cost of
@@ -40,6 +44,7 @@ from vqvae_tpu_torch.probes._common import (
     cuda_ms,
     device_name,
     finish,
+    graph_ms,
     resolve_device,
 )
 
@@ -118,8 +123,12 @@ def full_width(dev, B, cdt, checks, seed=0):
 
     cond = fwd()
     checks.close(f"fwd_{tag}", cond, plain_fwd(), tol)
-    for name, a, r in zip(("de", "duw", "dub"), bwd(), plain_bwd()):
+    grads = bwd()
+    for name, a, r in zip(("de", "duw", "dub"), grads, plain_bwd()):
         checks.close(f"bwd_{name}_{tag}", a, r, tol)
+    checks.exact(f"fwd_repeat_{tag}", fwd(), cond)
+    for name, a, r in zip(("de", "duw", "dub"), bwd(), grads):
+        checks.exact(f"bwd_{name}_repeat_{tag}", a, r)
     checks.close(f"library_fwd_{tag}", lib_fwd().transpose(1, 2), cond, tol)
     rec = {"batch": B, "dtype": str(cdt)[6:], "hop": hop, "d": d, "T": T,
            "Tl": Tl}
@@ -141,6 +150,10 @@ def full_width(dev, B, cdt, checks, seed=0):
     rec.update(
         fwd_ms=cuda_ms(fwd, dev, REPS), bwd_ms=cuda_ms(bwd, dev, REPS),
         launches=dict(uc.launches))
+    # a capture runs each call once, so the launch counts are taken first
+    rec.update(fwd_graph_ms=graph_ms(fwd, dev, REPS),
+               bwd_graph_ms=graph_ms(bwd, dev, REPS),
+               bwd_split_ms=uc.cond_bwd_split_ms(dcond, e, uwk, hop))
     rec.update(
         plain_fwd_ms=cuda_ms(plain_fwd, dev, 3),
         plain_bwd_ms=cuda_ms(plain_bwd, dev, 3),
@@ -150,8 +163,10 @@ def full_width(dev, B, cdt, checks, seed=0):
         cond_bytes=cond.numel() * cond.element_size())
     rec["read_bound_ms"] = 1e3 * rec["cond_bytes"] / PEAK_BYTES
     print(f"B={B} {rec['dtype']} cond [{B}, {T}, {d}]: building it from e "
-          f"takes {1e3 * rec['fwd_ms']:.1f} us (backward "
-          f"{1e3 * rec['bwd_ms']:.1f} us); reading it costs "
+          f"takes {1e3 * rec['fwd_graph_ms']:.1f} us on the card, "
+          f"{1e3 * rec['fwd_ms']:.1f} a call (backward "
+          f"{1e3 * rec['bwd_graph_ms']:.1f}, {1e3 * rec['bwd_ms']:.1f}); "
+          f"reading it costs "
           f"{1e3 * rec['read_bound_ms']:.1f} us at 3.35 TB/s (a copy_ that "
           f"reads and writes it: {1e3 * rec['copy_ms']:.1f} us); plain "
           f"{rec['plain_fwd_ms']:.3f} / {rec['plain_bwd_ms']:.3f} ms, "
