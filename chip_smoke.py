@@ -94,8 +94,9 @@ nonzero:
              the plain decoder; the recompute step's busy share and split
              by kernel; the recompute and windowed backwards and the VQ
              search against their plain versions at these shapes, each
-             timed beside its plain version and its bound; and the step
-             with the fused encoder (encoder_kernel=pallas).
+             timed beside its plain version and its bound (the VQ search
+             at N = 1920 and 7680, per call and by CUDA-graph replay);
+             and the step with the fused encoder (encoder_kernel=pallas).
 12. enc-kernel — the fused encoder's forward and recompute backward
              against their plain versions at vctk-multi width (C=128, d=64,
              5 layers, non-zero biases) at B=2 and at the training shape
@@ -132,7 +133,8 @@ nonzero:
              events), beside the plain versions, conv_transpose1d and the
              cost of reading [B, T, d];
              the dot probe's three contractions (1e-4 of max), leading-dim
-             split and pad/add/slice (bit-equal); the reshape probe's five
+             split and pad/add/slice (bit-equal), each body timed per call
+             and by CUDA-graph replay beside einsum; the reshape probe's five
              layouts (bit-equal; the flat copy timed per call and by
              CUDA-graph replay beside clone, both ways) and its fused
              composition (1e-4); the bf16 and int8 decode chains at L=2
@@ -1299,6 +1301,7 @@ def train_time_vctk_phase(device, errs):
     from vqvae_tpu_torch.configs import get_config
     from vqvae_tpu_torch.kernels import vq_cuda
     from vqvae_tpu_torch.kernels import wavenet_train_cuda as wt
+    from vqvae_tpu_torch.probes._common import graph_ms
     from vqvae_tpu_torch.train.state import create_train_state
     from vqvae_tpu_torch.train.step import train_step
     from vqvae_tpu_torch.utils.flops import train_step_flops
@@ -1409,16 +1412,22 @@ def train_time_vctk_phase(device, errs):
             f"{n_chunks - 1} averaged): kernel {ms_:.2f} ms, plain "
             f"{plain:.2f} ms, bound {bms:.3f} ms ({bby})")
     N = B * T // mc.hop
-    (z, cb), left_out, bad = vq_check(N, device, errs, seed=1)
-    ms_ = cuda_ms(lambda: vq_cuda.vq_argmin_kernel(z, cb), reps=50)
-    pms = cuda_ms(lambda: vq_cuda.vq_argmin_plain(z, cb), reps=50)
-    bms, bby = bound(*vq_work(N, cb.shape[0], cb.shape[1]), peak=PEAK_F32)
-    out["vq_argmin"] = dict(ms=ms_, plain_ms=pms, bound_ms=bms, bound_by=bby)
-    say("train-time-vctk", t0, f"vq N={N} (B={B} x T/{mc.hop}) K=512 d=64: "
-        f"{left_out} rows within the margin left out, {bad} ids differ; "
-        f"kernel {ms_ * 1e3:.1f} us, plain (addmm + argmax) "
-        f"{pms * 1e3:.1f} us, bound {bms * 1e3:.2f} us ({bby}, float32 "
-        f"at 67 TFLOP/s)")
+    for n in (N, 4 * N):
+        (z, cb), left_out, bad = vq_check(n, device, errs, seed=1)
+        ms_ = cuda_ms(lambda: vq_cuda.vq_argmin_kernel(z, cb), reps=50)
+        gms = graph_ms(lambda: vq_cuda.vq_argmin_kernel(z, cb), device, 50)
+        pms = cuda_ms(lambda: vq_cuda.vq_argmin_plain(z, cb), reps=50)
+        bms, bby = bound(*vq_work(n, cb.shape[0], cb.shape[1]),
+                         peak=PEAK_F32)
+        if n == N:
+            out["vq_argmin"] = dict(ms=ms_, plain_ms=pms, bound_ms=bms,
+                                    bound_by=bby)
+        say("train-time-vctk", t0, f"vq N={n} ({n // (T // mc.hop)} x "
+            f"T/{mc.hop}) K=512 d=64: {left_out} rows within the margin "
+            f"left out, {bad} ids differ; kernel {ms_ * 1e3:.2f} us a call, "
+            f"{gms * 1e3:.3f} us by graph replay; plain (addmm + argmax) "
+            f"{pms * 1e3:.1f} us; bound {bms * 1e3:.2f} us ({bby}, float32 "
+            f"at 67 TFLOP/s: {100 * bms / gms:.1f}% of the card's time)")
     return out
 
 
@@ -1778,10 +1787,13 @@ def probes_phase(decode_us):
         ms=sum(t[k]["ms"] for k in contr),
         plain_ms=sum(t[k]["plain_ms"] for k in contr), bound_ms=bms,
         bound_by=bby, library_ms=sum(t[k]["library_ms"] for k in contr))
-    say("probes", t0, "dot: " + "; ".join(
-        f"{k} {1e3 * v['ms']:.2f} us (plain {1e3 * v['plain_ms']:.2f}"
-        + (f", library {1e3 * v['library_ms']:.2f})" if v["library_ms"]
-           else ")") for k, v in t.items()))
+    say("probes", t0, "dot (us a call / by graph replay): " + "; ".join(
+        f"{k} {1e3 * v['ms']:.2f} / {1e3 * v['graph_ms']:.3f} (plain "
+        f"{1e3 * v['plain_ms']:.2f}"
+        + (f", library {1e3 * v['library_ms']:.2f} / "
+           f"{1e3 * v['library_graph_ms']:.3f})" if v["library_ms"]
+           else ")") for k, v in t.items())
+        + f"; the contractions' bound {1e3 * bms / 3:.3f} each ({bby})")
 
     t0 = time.monotonic()
     rec, _ = run_probe("reshape")

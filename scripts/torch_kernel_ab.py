@@ -33,7 +33,13 @@ upsampler's forward and backward at vctk-multi width on the cond probe's
 inputs, B=16 and B=64, bfloat16 and float32 (``cond_fwd_bf16_16`` ...:
 20 calls between CUDA events, the host's enqueue included, and
 ``..._graph``: by CUDA-graph replay, the card's time alone; null where
-that tree's kernels cannot be captured); ``--only probes`` stops there.  Run the two trees in turns in one call (parent,
+that tree's kernels cannot be captured), the VQ search at K=512, d=64,
+N = 1920 and 7680 (``vq_1920_call``, ``vq_1920_graph``, ...: 50 calls
+between CUDA events and by graph replay; ``chip_smoke.py``'s seeded
+inputs), and the dot probe's three contractions and its overlap-add on
+the probe's data (``dot_nre_call``, ``dot_nre_graph``, ... for ``nre``,
+``ne``, ``dre``, ``ola``; ``einsum_nre_call`` ... beside the three
+contractions); ``--only probes`` stops there.  Run the two trees in turns in one call (parent,
 change, change, parent) so that both are timed on one card.  Needs one
 GPU; no JAX.
 """
@@ -121,6 +127,48 @@ def probe_ms(cs, dev):
     res["chain_int8"] = cs.cuda_ms(lambda: chn.chain(x, w8, dim.STEPS, sc),
                                    reps=10)
     res.update(cond_ms(cs, dev))
+    res.update(vq_dot_ms(cs, dev))
+    return res
+
+
+def vq_dot_ms(cs, dev):
+    """The VQ search's and the dot probe bodies' times (see the
+    docstring) through ``vq_cuda.vq_argmin_kernel`` and
+    ``probes/dot.py::bodies``, which every tree since the probes' port
+    has."""
+    import numpy as np
+    import torch
+    from vqvae_tpu_torch.kernels import vq_cuda
+    from vqvae_tpu_torch.probes import dot as dprobe
+
+    def both(name, fn):
+        res[name + "_call"] = cs.cuda_ms(fn, reps=50)
+        try:
+            res[name + "_graph"] = graph_ms(fn)
+        except RuntimeError:
+            res[name + "_graph"] = None
+
+    res = {}
+    for N in (1920, 7680):
+        g = torch.Generator().manual_seed(N)
+        z = torch.randn(N, 64, generator=g).to(dev)
+        cb = torch.randn(512, 64, generator=g).to(dev)
+        both(f"vq_{N}", lambda: vq_cuda.vq_argmin_kernel(z, cb))
+    rng = np.random.default_rng(0)
+    N, hop, d = dprobe.N, dprobe.HOP, dprobe.D
+    ef = torch.from_numpy(rng.standard_normal((N, d))).float().to(dev)
+    W = torch.from_numpy(rng.standard_normal((hop, d, d)) * 0.1).float().to(
+        dev)
+    dp = torch.from_numpy(rng.standard_normal((N, hop, d))).float().to(dev)
+    big = torch.from_numpy(rng.standard_normal((N * hop, d))).float().to(dev)
+    tags = {"nd,rde->nre": "nre", "nrd,rde->ne": "ne", "nd,nre->dre": "dre",
+            "pad/add/slice": "ola"}
+    for name, kern, _, lib, _ in dprobe.bodies(ef, W, dp, big, hop):
+        if name not in tags:
+            continue
+        both(f"dot_{tags[name]}", kern)
+        if lib is not None:
+            both(f"einsum_{tags[name]}", lib)
     return res
 
 

@@ -6,6 +6,7 @@ Marked ``cuda``: these skip on a machine without a GPU.  On the card
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import collections
 import dataclasses
 
 import pytest
@@ -415,6 +416,75 @@ def test_vq_kernel_vs_plain(cuda, N):
     assert bool((got == want)[far].all())
 
 
+def _vq_far(z, cb):
+    s = 2 * (z.double() @ cb.double().T) - (cb.double() ** 2).sum(-1)
+    top = s.topk(min(2, cb.shape[0]), -1).values
+    if cb.shape[0] == 1:
+        return torch.ones(z.shape[0], dtype=torch.bool, device=z.device)
+    return (top[:, 0] - top[:, 1]) > 1e-4 * float(s.abs().max())
+
+
+@pytest.mark.parametrize("K,d", [(512, 64), (128, 16)])
+@pytest.mark.parametrize("N", [1, 31, 1000, 1920, 7680])
+def test_vq_kernel_shapes_repeat_and_one_launch(cuda, N, K, d):
+    """Every preset's (K, d): ids equal to the plain version's above the
+    1e-4 margin, the same ids from a second call, one launch counted."""
+    g = torch.Generator().manual_seed(N + K)
+    z = torch.randn(N, d, generator=g).to(cuda)
+    cb = torch.randn(K, d, generator=g).to(cuda)
+    before = vq_cuda.launches
+    got = vq_cuda.vq_argmin(z, cb)
+    assert vq_cuda.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (N,)
+    assert torch.equal(got, vq_cuda.vq_argmin(z, cb))
+    want = vq_cuda.vq_argmin_plain(z, cb)
+    assert bool((got == want)[_vq_far(z, cb)].all())
+
+
+@pytest.mark.parametrize("first,second", [(100, 300), (5, 37), (5, 6),
+                                          (3, 127), (200, 511)])
+def test_vq_kernel_ties_go_to_the_first_index(cuda, first, second):
+    """A code duplicated at two ids, in two slices, one lane or two
+    lanes: rows nearest to it take the lower id."""
+    g = torch.Generator().manual_seed(7)
+    cb = torch.randn(512, 64, generator=g)
+    cb[second] = cb[first]
+    z = cb[first][None] * (0.8 + 0.4 * torch.rand(300, 1, generator=g)) + \
+        0.01 * torch.randn(300, 64, generator=g)
+    got = vq_cuda.vq_argmin(z.to(cuda), cb.to(cuda))
+    assert bool((got == first).all())
+
+
+@pytest.mark.parametrize("N,K,d,offset", [(300, 512, 256, 0),
+                                          (300, 100, 18, 0),
+                                          (300, 3072, 64, 0),
+                                          (300, 1100, 20, 0),
+                                          (300, 513, 64, 1),
+                                          (5, 1, 8, 0), (77, 3, 4, 0)])
+def test_vq_kernel_other_sizes_and_layouts(cuda, N, K, d, offset):
+    """One z stage (d 256), widths that are not multiples of 4 (zero
+    padded), the largest codebook at d 64 (5 passes a slice),
+    z and the codebook 4 bytes off a 16-byte boundary (the copies then
+    go a value at a time), one code, three: the plain version's ids
+    above the margin."""
+    g = torch.Generator().manual_seed(K + d)
+    zb = torch.randn(N * d + offset, generator=g).to(cuda)
+    cbb = torch.randn(K * d + offset, generator=g).to(cuda)
+    z, cb = zb[offset:].view(N, d), cbb[offset:].view(K, d)
+    got = vq_cuda.vq_argmin(z, cb)
+    want = vq_cuda.vq_argmin_plain(z, cb)
+    assert bool((got == want)[_vq_far(z, cb)].all())
+
+
+def test_vq_kernel_refuses_what_does_not_fit(cuda):
+    """A quarter of the codebook must fit in shared memory, d <= 256:
+    the wrapper raises with the limit."""
+    for K, d in ((4096, 64), (512, 300)):
+        with pytest.raises(ValueError, match="limit is 232448"):
+            vq_cuda.vq_argmin_kernel(torch.zeros(4, d, device=cuda),
+                                     torch.zeros(K, d, device=cuda))
+
+
 # ---- the fused encoder (csrc/encoder.cu) ----------------------------------
 
 from vqvae_tpu_torch.kernels import encoder_cuda as ec          # noqa: E402
@@ -671,6 +741,115 @@ def test_dot_probe_kernels_vs_plain(cuda, cdt):
     assert torch.equal(uc.relayout_kernel(big, (N, hop, d), "probe_dot"),
                        big.reshape(N, hop, d))
     assert uc.launches["probe_dot"] == before + 5
+
+
+def _dot_bodies(cdt, dev, N=32, hop=64, d=64, seed=0):
+    """(name, kernel call, plain call) of the dot probe's three
+    contractions and its overlap-add on seeded inputs."""
+    g = torch.Generator().manual_seed(seed)
+    ef = torch.randn(N, d, generator=g).to(dev, cdt)
+    W = (torch.randn(hop, d, d, generator=g) * 0.1).to(dev, cdt)
+    dp = torch.randn(N, hop, d, generator=g).to(dev)
+    x = torch.randn(N * hop, d, generator=g).to(dev, cdt)
+    return [("nre", lambda: uc.tap_product_kernel(ef, W),
+             lambda: uc.tap_product_plain(ef, W)),
+            ("ne", lambda: uc.tap_adjoint_kernel(dp, W),
+             lambda: uc.tap_adjoint_plain(dp, W)),
+            ("dre", lambda: uc.tap_wgrad_kernel(ef, dp),
+             lambda: uc.tap_wgrad_plain(ef, dp)),
+            ("ola", lambda: uc.overlap_add_kernel(x, hop),
+             lambda: uc.overlap_add_plain(x, hop))]
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_dot_probe_kernels_repeat_one_launch_no_scratch(cuda, cdt):
+    """At the probe's shape each body allocates nothing but its output,
+    counts one launch, and gives the same bits twice."""
+    for name, kern, _ in _dot_bodies(cdt, cuda):
+        first = kern()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(cuda)
+        torch.cuda.reset_peak_memory_stats(cuda)
+        count = uc.launches["probe_dot"]
+        second = kern()
+        torch.cuda.synchronize()
+        assert uc.launches["probe_dot"] == count + 1, name
+        grown = torch.cuda.max_memory_allocated(cuda) - before
+        assert grown == second.numel() * second.element_size(), name
+        assert torch.equal(first, second), name
+
+
+def test_vq_and_dot_kernels_run_one_device_kernel_a_call(cuda):
+    """Under torch.profiler (one session: CUDA events went missing from
+    later sessions in a long test process), each call of the VQ search
+    (both presets' (K, d)) and of the dot probe's four bodies (both
+    dtypes) runs exactly one device kernel, its own: no transpose, cast,
+    scratch fill or second reduction launch."""
+    from torch.autograd import DeviceType
+    g = torch.Generator().manual_seed(5)
+    calls = []
+    for N, K, d in ((1920, 512, 64), (31, 128, 16)):
+        z = torch.randn(N, d, generator=g).to(cuda)
+        cb = torch.randn(K, d, generator=g).to(cuda)
+        calls.append(("vq_search",
+                      lambda z=z, cb=cb: vq_cuda.vq_argmin(z, cb)))
+    names = {"nre": "dot_nre", "ne": "dot_ne", "dre": "dot_dre", "ola": "ola"}
+    for cdt in (torch.float32, torch.bfloat16):
+        calls += [(names[n], k) for n, k, _ in _dot_bodies(cdt, cuda)]
+    for _, fn in calls:   # builds, first-call attributes
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _, fn in calls:
+            fn()
+            torch.cuda.synchronize()
+    got = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(got) == len(calls), got
+    want = collections.Counter(k for k, _ in calls)
+    assert collections.Counter(
+        next((k for k in want if k in name), name) for name in got) == want
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,hop,d", [(1, 6, 8), (33, 20, 24), (100, 64, 64),
+                                     (7, 130, 136), (40, 2, 256)])
+def test_dot_probe_kernels_grid_vs_plain(cuda, cdt, N, hop, d):
+    """Other shapes (row, column and K tiles cut short, several K stages
+    a rank): within 1e-4 / 3e-2 of max of the plain versions; the
+    overlap-add bit-equal in float32."""
+    for name, kern, plain in _dot_bodies(cdt, cuda, N, hop, d, seed=N + d):
+        got, want = kern(), plain()
+        assert got.shape == want.shape and got.dtype == want.dtype, name
+        if name == "ola" and cdt == torch.float32:
+            assert torch.equal(got, want)
+        else:
+            assert _rel_err(got, want) <= TRAIN_TOL[cdt], name
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_overlap_add_kernel_odd_widths_and_offsets(cuda, cdt):
+    """A width that is not a multiple of 8 and an x 4 bytes off a
+    16-byte boundary take the kernel's value-at-a-time path; float32
+    stays bit-equal."""
+    g = torch.Generator().manual_seed(3)
+    for T, d, off in ((100, 12, 0), (64, 64, 1), (9, 8, 0)):
+        base = torch.randn(T * d + off, generator=g).to(cuda, cdt)
+        x = base[off:].view(T, d)
+        for hop in (2, 6, 64):
+            got, want = uc.overlap_add_kernel(x, hop), \
+                uc.overlap_add_plain(x, hop)
+            if cdt == torch.float32:
+                assert torch.equal(got, want)
+            else:
+                assert _rel_err(got, want) <= TRAIN_TOL[cdt]
+
+
+def test_dot_kernels_refuse_widths(cuda):
+    e = torch.zeros(4, 12, device=cuda)
+    with pytest.raises(ValueError, match="widths 8..256"):
+        uc.tap_product_kernel(e, torch.zeros(3, 12, 12, device=cuda))
 
 
 def test_reshape_probe_kernels_exact(cuda):

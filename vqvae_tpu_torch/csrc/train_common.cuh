@@ -133,6 +133,68 @@ __device__ __forceinline__ void mma_f64(double (&d)[4], const double (&a)[8],
       : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]),
         "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
 }
+
+// Thread-block clusters (upsample.cu, vq.cu): the block's rank, a barrier
+// over every thread of the cluster, and stores to and loads from another
+// block's shared memory (distributed shared memory).
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return (int)r;
+}
+
+// release/acquire: what a block wrote to its shared memory before it is
+// visible to all after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// the same barrier in two halves: a block arrives early (at its start,
+// say) and waits where it next needs the others (before it first writes
+// to another block's shared memory, which must have started)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed;" ::: "memory");
+}
+// ... or after stores that the others read once they have waited
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// the address of local shared address p in block `rank` of the cluster
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
+  uint32_t a;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;"
+      : "=r"(a)
+      : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ void st_cluster(float* p, int rank, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(cluster_addr(p, rank)),
+               "f"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_cluster(int* p, int rank, int v) {
+  asm volatile("st.shared::cluster.s32 [%0], %1;" ::"r"(cluster_addr(p, rank)),
+               "r"(v)
+               : "memory");
+}
+
+// 16 bytes (callers load every rank before adding, so the loads issue
+// together)
+__device__ __forceinline__ float4 ld_cluster4(const void* p, int rank) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(cluster_addr(p, rank))
+               : "memory");
+  return v;
+}
 // ---- end of PTX primitives ----
 
 // Warp-level tile products on those primitives.  Shared-memory tiles are

@@ -71,369 +71,351 @@
 // order (runs, then groups) into duw, de and dub.  No atomics: two calls
 // give the same bits.
 //
-// The dot probe's contractions nd,rde->nre, nrd,rde->ne and nd,nre->dre
-// are the tap product, de and duw with the overlap-add off; they enter
-// tap_fwd, rows_mm and atb_win through vqvae_dot_*.  The overlap-add on
-// its own (the probe's pad/add/slice) is ola; the reshape probe's
+// The dot probe.  Its contractions nd,rde->nre, nrd,rde->ne and
+// nd,nre->dre are the tap product, de and duw with the overlap-add off
+// (N = 32, hop = 64, d = 64 in the probe: each moves ~1.6 MB, 0.47 us at
+// 3.35 TB/s, against 17 MFLOP, so bytes bind and in practice the launch).
+// Each is one launch with no scratch: dot_nre's blocks own a tap r (W[r]
+// read once in all) and write 16-byte pieces; dot_ne splits its K = hop*d
+// over an 8-block cluster and adds the ranks' partial sums in rank order
+// through distributed shared memory; dot_dre sums its N rows in order,
+// with no split, in blocks that own column slices of the [d, hop*d]
+// output.  The overlap-add on its own (the probe's pad/add/slice) is ola,
+// 8 values a thread by 16-byte loads and stores.  The reshape probe's
 // layouts are flat_copy, its matmul -> untile -> matmul composition is
 // compose, whose [N, hop*d] intermediate stays in shared memory.
+#include <initializer_list>
+
 #include "train_common.cuh"
 
 using namespace vqt;
 
 namespace {
 
-constexpr int FM = 64;     // tap_fwd: output frames per tile
-constexpr int FN = 128;    // tap_fwd: columns per tile
-constexpr int KMAX = 128;  // tap_fwd: the rows of its staged B tile
-constexpr int PAD = 8;     // row padding (elements) of staged tiles
+// ---------------------------------------------------------------------------
+// The dot probe's contractions and its overlap-add (see "The dot probe" in
+// the header).  T is the dtype of e and W (float or bf16), every sum
+// float32; every operand is contiguous and 16-byte aligned, d a multiple
+// of 8 up to 256.
+// ---------------------------------------------------------------------------
 
-// Tiles move 8 consecutive elements at a time (16 bytes of bf16, 32 of
-// float32): every width here is a multiple of 16, every stride and
-// offset a multiple of 8 elements, so each group of 8 lies in one row
-// and is aligned.
+// 8 consecutive elements of T from global memory, as floats
 template <typename T>
-__device__ __forceinline__ void cp8(T* dst, const T* src) {
+__device__ __forceinline__ void ld8(float (&v)[8], const T* p) {
   if constexpr (sizeof(T) == 2) {
-    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = __uint_as_float(w[i] << 16);
+      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
   } else {
-    reinterpret_cast<float4*>(dst)[0] = reinterpret_cast<const float4*>(src)[0];
-    reinterpret_cast<float4*>(dst)[1] = reinterpret_cast<const float4*>(src)[1];
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+    v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
   }
 }
 
+// the first EP = 16 / sizeof(T) of v rounded to T, one 16-byte store
 template <typename T>
-__device__ __forceinline__ void zero8(T* dst) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) dst[i] = fromf<T>(0.f);
+__device__ __forceinline__ void st16(T* p, const float* v) {
+  if constexpr (sizeof(T) == 2)
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                   pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+  else
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
-// 8 floats from float32 memory, rounded to T, into dst
-template <typename T>
-__device__ __forceinline__ void cvt8(T* dst, const float* src) {
-  const float4 a = reinterpret_cast<const float4*>(src)[0];
-  const float4 b = reinterpret_cast<const float4*>(src)[1];
-  const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+// n consecutive elements of T from shared memory (4 or 8 bf16, 4
+// floats: one load), as floats
+template <typename T, int n>
+__device__ __forceinline__ void lds(float (&v)[n], const T* p) {
+  static_assert(n == 4 || (n == 8 && sizeof(T) == 2), "one load");
   if constexpr (sizeof(T) == 2) {
-    alignas(16) T o[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) o[i] = fromf<T>(v[i]);
-    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(o);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[i] = fromf<T>(v[i]);
-  }
-}
-
-// B[k, n] of the tap product: W[(k % d)*sk + (n / d)*sr + n % d] (the dot
-// probe's W [hop, d, d])
-struct TapW {
-  long long sk, sr;
-  __device__ __forceinline__ long long at(int k, int n, int d) const {
-    return (k % d) * sk + (long long)(n / d) * sr + n % d;
-  }
-};
-
-// Y[(g*Trows + q*hop + n/d - off)*d + n%d] = sum_k e[q, k] B[k, n] for the
-// Q rows q of group g = blockIdx.z (K = d; e rows outside [0, P) are 0);
-// rows outside [0, Trows) are not written.
-template <typename T>
-__global__ void tap_fwd(int P, int Q, int hop, int d, int off, int Trows,
-                        const T* __restrict__ e, const T* __restrict__ w,
-                        TapW tw, T* __restrict__ y) {
-  const int K = d, N = hop * d;
-  const int LDA = K + PAD, LDB = FN + PAD, LDC = FN + 4;
-  T* As = reinterpret_cast<T*>(smem);                      // [FM][LDA]
-  T* Bs = reinterpret_cast<T*>(smem + words<T>(FM * LDA)); // [K][LDB]
-  float* Cs = smem + words<T>(FM * LDA) + words<T>(KMAX * LDB);  // [FM][LDC]
-  const int q0 = blockIdx.x * FM, n0 = blockIdx.y * FN, g = blockIdx.z;
-  const int tid = threadIdx.x;
-  const T* eg = e + (size_t)g * P * d;
-  for (int i = tid; i < FM * K / 8; i += NT) {
-    const int r = i / (K / 8), k = (i % (K / 8)) * 8, q = q0 + r;
-    if (q < Q && q < P)
-      cp8(As + r * LDA + k, eg + (size_t)q * d + k);
-    else
-      zero8(As + r * LDA + k);
-  }
-  for (int i = tid; i < K * FN / 8; i += NT) {
-    const int k = i / (FN / 8), j = (i % (FN / 8)) * 8, n = n0 + j;
-    if (n < N)
-      cp8(Bs + k * LDB + j, w + tw.at(k, n, d));
-    else
-      zero8(Bs + k * LDB + j);
-  }
-  __syncthreads();
-  if constexpr (std::is_same<T, bf16>::value) {
-    using namespace nvcuda;
-    const int warp = tid >> 5, wr = warp >> 1, wc = (warp & 1) * 4;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-    for (int f = 0; f < 4; ++f) wmma::fill_fragment(acc[f], 0.f);
-    for (int k = 0; k < K; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, As + wr * 16 * LDA + k, LDA);
-#pragma unroll
-      for (int f = 0; f < 4; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, Bs + k * LDB + (wc + f) * 16, LDB);
-        wmma::mma_sync(acc[f], fa, fb, acc[f]);
-      }
-    }
-#pragma unroll
-    for (int f = 0; f < 4; ++f)
-      wmma::store_matrix_sync(Cs + wr * 16 * LDC + (wc + f) * 16, acc[f],
-                              LDC, wmma::mem_row_major);
-  } else {
-    // 16 x 16 threads, each 4 rows x 8 columns (stride 16), k in order
-    const int tr = tid / 16, tc = tid % 16;
-    float acc[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    for (int k = 0; k < K; ++k) {
-      float b[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = tof(Bs[k * LDB + tc + 16 * j]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float a = tof(As[(tr * 4 + i) * LDA + k]);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a, b[j], acc[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        Cs[(tr * 4 + i) * LDC + tc + 16 * j] = acc[i][j];
-  }
-  __syncthreads();
-  T* yg = y + (size_t)g * Trows * d;
-  for (int i = tid; i < FM * FN / 8; i += NT) {
-    const int r = i / (FN / 8), j = (i % (FN / 8)) * 8;
-    const int n = n0 + j, q = q0 + r;
-    if (q >= Q || n >= N) continue;
-    const int t = q * hop + n / d - off;
-    if (t < 0 || t >= Trows) continue;
-    alignas(16) float v[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = Cs[r * LDC + j + e];
-    cvt8(yg + (size_t)t * d + n % d, v);
-  }
-}
-
-// A window row: row (g, p) of the windowed operand is X[(g*Trows + p*hop
-// - off)*d + k] for k < span*d, 0 where its audio row p*hop - off + k/d
-// lies outside [0, Trows) (the adjoint of the overlap-add and the crop).
-struct Win {
-  int P, hop, off, Trows, d;
-  // &X[row m, k] for a group of 8 values k..k+7 (one audio row), or
-  // nullptr where that row lies outside [0, Trows)
-  __device__ __forceinline__ const float* at8(const float* __restrict__ X,
-                                              int m, int k) const {
-    const int g = m / P, p = m - g * P;
-    const int t = p * hop - off + k / d;
-    if (t < 0 || t >= Trows) return nullptr;
-    return X + ((size_t)g * Trows + t) * d + k % d;
-  }
-};
-
-constexpr int RM = 32;   // rows_mm: rows per tile
-constexpr int RN = 64;   // rows_mm: columns per tile
-constexpr int RK = 64;   // rows_mm: K per stage
-
-// part[s][m][c] = sum_k T(A[m, k]) B[k, c] over the k of split s =
-// blockIdx.z (kchunk values of K = span*d each), A the window rows of X
-// (float32, rounded to T as the probe casts da), B[k, c] = W[k*sk + c*sc];
-// float32.  The splits are added in order by reduce_parts.
-template <typename T>
-__global__ void rows_mm(int M, int K, int Nout, int kchunk, Win win,
-                        const float* __restrict__ X, const T* __restrict__ W,
-                        long long sk, long long sc, float* __restrict__ part) {
-  const int LDA = RK + PAD, LDB = RN + PAD, LDC = RN + 4;
-  T* As = reinterpret_cast<T*>(smem);                       // [RM][LDA]
-  T* Bs = reinterpret_cast<T*>(smem + words<T>(RM * LDA));  // [RK][LDB]
-  float* Cs = smem + words<T>(RM * LDA) + words<T>(RK * LDB);  // [RM][LDC]
-  const int m0 = blockIdx.x * RM, c0 = blockIdx.y * RN, tid = threadIdx.x;
-  using namespace nvcuda;
-  const int warp = tid >> 5, wr = warp >> 2, wc = warp & 3;  // 2 x 4 warps
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-  wmma::fill_fragment(acc, 0.f);
-  const int tr = tid / 16, tc = tid % 16;   // scalar: 2 rows x 4 columns
-  float sacc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-  const int k_begin = blockIdx.z * kchunk;
-  const int k_end = min(K, k_begin + kchunk);
-  for (int k0 = k_begin; k0 < k_end; k0 += RK) {
-    for (int i = tid; i < RM * RK / 8; i += NT) {
-      const int r = i / (RK / 8), k = (i % (RK / 8)) * 8, m = m0 + r;
-      const float* src =
-          (m < M && k0 + k < k_end) ? win.at8(X, m, k0 + k) : nullptr;
-      if (src)
-        cvt8(As + r * LDA + k, src);
-      else
-        zero8(As + r * LDA + k);
-    }
-    // groups of 8 along the unit stride (k for sk == 1, else c), so
-    // either layout of B coalesces
-    for (int i = tid; i < RK * RN / 8; i += NT) {
-      const bool kfast = sk == 1;
-      const int k = kfast ? (i % (RK / 8)) * 8 : i / (RN / 8);
-      const int c = kfast ? i / (RK / 8) : (i % (RN / 8)) * 8;
-      alignas(16) T v[8];
-      if (k0 + k < k_end && c0 + c < Nout)
-        cp8(v, W + (k0 + k) * sk + (c0 + c) * sc);
-      else
-        zero8(v);
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        Bs[(k + (kfast ? e : 0)) * LDB + c + (kfast ? 0 : e)] = v[e];
-    }
-    __syncthreads();
-    if constexpr (std::is_same<T, bf16>::value) {
-#pragma unroll
-      for (int k = 0; k < RK; k += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, As + wr * 16 * LDA + k, LDA);
-        wmma::load_matrix_sync(fb, Bs + k * LDB + wc * 16, LDB);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
+    uint32_t w[n / 2];
+    if constexpr (n == 4) {
+      const uint2 u = *reinterpret_cast<const uint2*>(p);
+      w[0] = u.x, w[1] = u.y;
     } else {
-      for (int k = 0; k < RK; ++k) {
+      const uint4 u = *reinterpret_cast<const uint4*>(p);
+      w[0] = u.x, w[1] = u.y, w[2] = u.z, w[3] = u.w;
+    }
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const float a = tof(As[(tr * 2 + i) * LDA + k]);
+    for (int i = 0; i < n / 2; ++i) {
+      v[2 * i] = __uint_as_float(w[i] << 16);
+      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  } else {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  }
+}
+
+__device__ __forceinline__ float at(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+constexpr int NR_C = 32;   // dot_nre: columns of W[r] a block
+
+// nd,rde->nre: y[n, r, c] = sum_k e[n, k] W[r, k, c], rounded once to T.
+// Block (r, column slice, row slice) stages its rows of e (as float32)
+// and W[r]'s column slice (as T, by 16-byte cp.async) in shared memory
+// once; each thread sums EP = 16 / sizeof(T) consecutive columns of one
+// row in k order and stores them as one 16-byte piece.  A block takes
+// NT / (NR_C / EP) rows: 32 in float32, 64 in bf16.
+template <typename T>
+__global__ void __launch_bounds__(NT)
+    dot_nre(int N, int hop, int d, const T* __restrict__ e,
+            const T* __restrict__ w, T* __restrict__ y) {
+  constexpr int EP = 16 / sizeof(T);   // columns a thread (one store)
+  constexpr int CG = NR_C / EP;        // column groups
+  constexpr int RB = NT / CG;          // rows a block
+  const int lde = d + 4;
+  float* es = smem;                                // [RB][lde]
+  T* ws = reinterpret_cast<T*>(smem + RB * lde);   // [d][NR_C]
+  const int r = blockIdx.x, c0 = blockIdx.y * NR_C, n0 = blockIdx.z * RB;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < d * CG; i += NT) {
+    const int k = i / CG, c = (i - k * CG) * EP;
+    const bool ok = c0 + c < d;
+    async_copy16(ws + k * NR_C + c,
+                 ok ? w + ((size_t)r * d + k) * d + c0 + c : w, ok);
+  }
+  async_commit();
+  const int rows = min(RB, N - n0);
+  for (int i = tid; i < rows * (d / 8); i += NT) {
+    const int q = i / (d / 8), k = (i - q * (d / 8)) * 8;
+    float v[8];
+    ld8(v, e + (size_t)(n0 + q) * d + k);
+    float4* dst = reinterpret_cast<float4*>(es + q * lde + k);
+    dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+    dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+  }
+  async_wait<0>();
+  __syncthreads();
+  const int cg = tid % CG, q = tid / CG, c = c0 + cg * EP;
+  if (q >= rows || c >= d) return;
+  float acc[EP];
+#pragma unroll
+  for (int j = 0; j < EP; ++j) acc[j] = 0.f;
+  const float* er = es + q * lde;
+  const T* wc = ws + cg * EP;
+  for (int k = 0; k < d; k += 4) {
+    const float4 a = *reinterpret_cast<const float4*>(er + k);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float b[EP];
+      lds<T, EP>(b, wc + (k + u) * NR_C);
+#pragma unroll
+      for (int j = 0; j < EP; ++j) acc[j] = fmaf(at(a, u), b[j], acc[j]);
+    }
+  }
+  st16(y + ((size_t)(n0 + q) * hop + r) * d + c, acc);
+}
+
+constexpr int NE_CS = 8;     // dot_ne: blocks a cluster (the splits of K)
+constexpr int NE_R = 8;      // dot_ne: output rows a cluster
+constexpr int NE_C = 16;     // dot_ne: output columns a cluster
+constexpr int NE_O = NE_R * NE_C;
+constexpr int NE_KB = 512;   // dot_ne: values of K a stage
+constexpr int NE_KS = 16;    // dot_ne: values of K a thread sums a stage
+constexpr int NE_SUB = NE_KB / NE_KS;   // sub-ranges of a stage (32)
+
+// nrd,rde->ne: out[n, c] = sum_k T(dp[n, k]) W[k, c] over K = hop*d
+// (dp [N, K] float32, W [K, d] as T).  A cluster of NE_CS blocks owns an
+// [NE_R, NE_C] tile of out; rank q sums K's range [q*kc, (q+1)*kc) in
+// stages of NE_KB staged in shared memory (dp rows rounded to T once,
+// W's column slice by cp.async).  In a stage, sub-range s = 4*warp + lane
+// / 8 of NE_KS values is summed in k order by 8 lanes, each 4 rows x 4
+// columns; a thread keeps its sums over the stages, the block adds its
+// sub-ranges in order and stores that sum into slot q of rank 0's shared
+// memory (distributed shared memory); after a cluster barrier rank 0 adds
+// the slots in rank order and writes the tile.  One launch, no scratch,
+// the same bits every call.
+template <typename T>
+__global__ void __launch_bounds__(NT)
+    dot_ne(int N, int K, int d, int kc, const float* __restrict__ dp,
+           const T* __restrict__ w, float* __restrict__ out) {
+  constexpr int LDA = NE_KB + 4;
+  constexpr int WP = NE_C * (int)sizeof(T) / 16;   // 16-byte pieces a row
+  float* as = smem;                                      // [NE_R][LDA]
+  T* ws = reinterpret_cast<T*>(as + NE_R * LDA);         // [NE_KB][NE_C]
+  float* red = as + NE_R * LDA + words<T>(NE_KB * NE_C); // [NE_SUB][NE_O]
+  float* gather = red + NE_SUB * NE_O;   // [NE_CS][NE_O], rank 0's
+  cluster_arrive();   // this block has started (waited for before the
+                      // ranks store into rank 0's gather)
+  const int q = cluster_rank(), tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int c0 = blockIdx.y * NE_C, n0 = blockIdx.z * NE_R;
+  const int k0 = q * kc, k1 = min(K, k0 + kc);
+  const int sub = 4 * warp + (lane >> 3);
+  const int rg = (lane >> 2) & 1, cq = lane & 3;   // rows 4 rg .., cols 4 cq ..
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int kb = k0; kb < k1; kb += NE_KB) {
+    const int kn = min(NE_KB, k1 - kb);   // a multiple of 8
+    for (int i = tid; i < NE_KB * WP; i += NT) {
+      const int k = i / WP, c = (i - k * WP) * (16 / (int)sizeof(T));
+      const bool ok = k < kn && c0 + c < d;
+      async_copy16(ws + k * NE_C + c,
+                   ok ? w + (size_t)(kb + k) * d + c0 + c : w, ok);
+    }
+    async_commit();
+    for (int i = tid; i < NE_R * (NE_KB / 4); i += NT) {
+      const int rr = i / (NE_KB / 4), k = (i - rr * (NE_KB / 4)) * 4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (n0 + rr < N && k < kn)
+        v = __ldg(reinterpret_cast<const float4*>(
+            dp + (size_t)(n0 + rr) * K + kb + k));
+      *reinterpret_cast<float4*>(as + rr * LDA + k) =
+          make_float4(rnd<T>(v.x), rnd<T>(v.y), rnd<T>(v.z), rnd<T>(v.w));
+    }
+    async_wait<0>();
+    __syncthreads();
+    for (int k = sub * NE_KS; k < (sub + 1) * NE_KS; k += 4) {
+      float4 a[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a[i] = *reinterpret_cast<const float4*>(as + (4 * rg + i) * LDA + k);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float b[4];
+        lds<T, 4>(b, ws + (k + u) * NE_C + 4 * cq);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            sacc[i][j] = fmaf(a, tof(Bs[k * LDB + tc + 16 * j]), sacc[i][j]);
-        }
+            acc[i][j] = fmaf(at(a[i], u), b[j], acc[i][j]);
       }
     }
-    __syncthreads();
+    __syncthreads();   // the stage is read before the next one's copies
   }
-  if constexpr (std::is_same<T, bf16>::value) {
-    wmma::store_matrix_sync(Cs + wr * 16 * LDC + wc * 16, acc, LDC,
-                            wmma::mem_row_major);
-  } else {
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        Cs[(tr * 2 + i) * LDC + tc + 16 * j] = sacc[i][j];
-  }
+    for (int j = 0; j < 4; ++j)
+      red[sub * NE_O + (4 * rg + i) * NE_C + 4 * cq + j] = acc[i][j];
   __syncthreads();
-  float* out = part + (size_t)blockIdx.z * M * Nout;
-  for (int i = tid; i < RM * RN; i += NT) {
-    const int r = i / RN, c = i % RN;
-    if (m0 + r < M && c0 + c < Nout)
-      out[(size_t)(m0 + r) * Nout + c0 + c] = Cs[r * LDC + c];
+  cluster_wait();   // every block of the cluster has started
+  if (tid < NE_O) {   // the block's sum, into rank 0's slot q
+    float s = red[tid];
+    for (int u = 1; u < NE_SUB; ++u) s += red[u * NE_O + tid];
+    st_cluster(gather + q * NE_O + tid, 0, s);
+  }
+  cluster_sync();   // every rank's sum has reached rank 0
+  if (q == 0 && tid < NE_O) {
+    float s = gather[tid];
+#pragma unroll
+    for (int u = 1; u < NE_CS; ++u) s += gather[u * NE_O + tid];
+    const int n = n0 + tid / NE_C, c = c0 + tid % NE_C;
+    if (n < N && c < d) out[(size_t)n * d + c] = s;
   }
 }
 
-// part[s][i][n] = sum over the rows m of split s of E[m, i] T(A[m, n]),
-// A the window rows of X; a 64 x 64 tile per block, 32 rows per stage.
+constexpr int DR_C = 32;   // dot_dre: output columns a block
+constexpr int DR_I = 64;   // dot_dre: output rows (channels of e) a block
+constexpr int DR_N = 64;   // dot_dre: rows of e and dp a stage
+
+// nd,nre->dre: out[i, c] = sum_n e[n, i] T(dp[n, c]) for c < M = hop*d
+// (dp [N, M] float32, out [d, M] float32).  No split: block (column
+// slice, row slice) stages DR_N rows of e (as float32) and of dp's column
+// slice (rounded to T) at a time and sums all N rows in order; a thread
+// keeps 2 rows x 4 columns and stores them as two 16-byte pieces.
 template <typename T>
-__global__ void atb_win(int M, int d, int N, int chunk, Win win,
-                        const T* __restrict__ E, const float* __restrict__ X,
-                        float* __restrict__ part) {
-  const int LD = AT + PAD, LDC = AT + 4;
-  T* Es = reinterpret_cast<T*>(smem);                        // [AK][LD]
-  T* As = reinterpret_cast<T*>(smem + words<T>(AK * LD));    // [AK][LD]
-  float* Cs = smem + 2 * words<T>(AK * LD);                  // [AT][LDC]
-  const int i0 = blockIdx.x * AT, n0 = blockIdx.y * AT, s = blockIdx.z;
-  const int r_begin = s * chunk, r_end = min(M, r_begin + chunk);
-  const int tid = threadIdx.x;
-  using namespace nvcuda;
-  const int warp = tid >> 5, wm = warp >> 1, wn = warp & 1;  // 4 x 2 warps
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
-  const int tm = tid / 16, tn = tid % 16;   // scalar: 4 x 4 per thread
-  float sacc[4][4];
+__global__ void __launch_bounds__(NT)
+    dot_dre(int N, int d, int M, const T* __restrict__ e,
+            const float* __restrict__ dp, float* __restrict__ out) {
+  float* es = smem;               // [DR_N][DR_I]
+  float* ds = es + DR_N * DR_I;   // [DR_N][DR_C]
+  const int c0 = blockIdx.x * DR_C, i0 = blockIdx.y * DR_I;
+  const int tid = threadIdx.x, cg = tid % (DR_C / 4), ig = tid / (DR_C / 4);
+  float acc[2][4];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int b = 0; b < 4; ++b) sacc[a][b] = 0.f;
-  for (int rb = r_begin; rb < r_end; rb += AK) {
-    for (int j = tid; j < AK * AT / 8; j += NT) {
-      const int k = j / (AT / 8), c = (j % (AT / 8)) * 8, m = rb + k;
-      const bool ok = m < r_end;
-      if (ok && i0 + c < d)
-        cp8(Es + k * LD + c, E + (size_t)m * d + i0 + c);
-      else
-        zero8(Es + k * LD + c);
-      const float* src = (ok && n0 + c < N) ? win.at8(X, m, n0 + c) : nullptr;
-      if (src)
-        cvt8(As + k * LD + c, src);
-      else
-        zero8(As + k * LD + c);
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int nb = 0; nb < N; nb += DR_N) {
+    const int nn = min(DR_N, N - nb);
+    for (int x = tid; x < DR_N * (DR_I / 8); x += NT) {
+      const int r = x / (DR_I / 8), k = (x % (DR_I / 8)) * 8;
+      float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (r < nn && i0 + k < d) ld8(v, e + (size_t)(nb + r) * d + i0 + k);
+      float4* dst = reinterpret_cast<float4*>(es + r * DR_I + k);
+      dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+      dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+    }
+    for (int x = tid; x < DR_N * (DR_C / 4); x += NT) {
+      const int r = x / (DR_C / 4), k = (x % (DR_C / 4)) * 4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < nn && c0 + k < M)
+        v = __ldg(reinterpret_cast<const float4*>(
+            dp + (size_t)(nb + r) * M + c0 + k));
+      *reinterpret_cast<float4*>(ds + r * DR_C + k) =
+          make_float4(rnd<T>(v.x), rnd<T>(v.y), rnd<T>(v.z), rnd<T>(v.w));
     }
     __syncthreads();
-    if constexpr (std::is_same<T, bf16>::value) {
+    for (int n = 0; n < nn; ++n) {
+      const float2 a = *reinterpret_cast<const float2*>(es + n * DR_I + 2 * ig);
+      const float4 b = *reinterpret_cast<const float4*>(ds + n * DR_C + 4 * cg);
 #pragma unroll
-      for (int kk = 0; kk < AK; kk += 16) {
-        // E^T tile: element (i, k) sits at Es[k*LD + i], i.e. column-major
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
-        wmma::load_matrix_sync(fa, Es + kk * LD + wm * 16, LD);
-#pragma unroll
-        for (int f = 0; f < 2; ++f) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-              fb;
-          wmma::load_matrix_sync(fb, As + kk * LD + wn * 32 + f * 16, LD);
-          wmma::mma_sync(acc[f], fa, fb, acc[f]);
-        }
-      }
-    } else {
-      for (int k = 0; k < AK; ++k) {
-        float a[4], b[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          a[q] = tof(Es[k * LD + tm * 4 + q]);
-          b[q] = tof(As[k * LD + tn * 4 + q]);
-        }
-#pragma unroll
-        for (int x = 0; x < 4; ++x)
-#pragma unroll
-          for (int y = 0; y < 4; ++y) sacc[x][y] = fmaf(a[x], b[y], sacc[x][y]);
+      for (int j = 0; j < 4; ++j) {
+        acc[0][j] = fmaf(a.x, at(b, j), acc[0][j]);
+        acc[1][j] = fmaf(a.y, at(b, j), acc[1][j]);
       }
     }
-    __syncthreads();
+    __syncthreads();   // the stage is read before the next one's stores
   }
-  if constexpr (std::is_same<T, bf16>::value) {
+  const int c = c0 + 4 * cg;
+  if (c >= M) return;
 #pragma unroll
-    for (int f = 0; f < 2; ++f)
-      wmma::store_matrix_sync(Cs + wm * 16 * LDC + wn * 32 + f * 16, acc[f],
-                              LDC, wmma::mem_row_major);
-  } else {
-#pragma unroll
-    for (int x = 0; x < 4; ++x)
-#pragma unroll
-      for (int y = 0; y < 4; ++y) Cs[(tm * 4 + x) * LDC + tn * 4 + y] = sacc[x][y];
-  }
-  __syncthreads();
-  for (int j = tid; j < AT * AT; j += NT) {
-    const int i = i0 + j / AT, n = n0 + j % AT;
-    if (i < d && n < N) part[((size_t)s * d + i) * N + n] = Cs[(j / AT) * LDC + j % AT];
+  for (int i = 0; i < 2; ++i) {
+    const int row = i0 + 2 * ig + i;
+    if (row < d)
+      *reinterpret_cast<float4*>(out + (size_t)row * M + c) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
   }
 }
 
 // The overlap-add on its own, the dot probe's pad/add/slice on the time
-// axis: y[t] = x[t + off] + x[t + off - hop] over x [Trows, d], a row
-// outside [0, Trows) reading as 0, the float32 sum rounded once.  It is
-// the upsampler's overlap-add with frames of hop rows (cond_fwd_tiles
-// packs that sum into its K instead).
-template <typename T>
-__global__ void ola(int hop, int off, int Trows, int d,
-                    const T* __restrict__ x, T* __restrict__ y) {
-  const long long i = (long long)blockIdx.x * NT + threadIdx.x;
-  if (i >= (long long)Trows * d) return;
-  const int t = (int)(i / d), c = (int)(i % d), u = t + off;
-  float v = 0.f;
-  if (u < Trows) v += tof(x[(size_t)u * d + c]);
-  if (u >= hop && u - hop < Trows) v += tof(x[(size_t)(u - hop) * d + c]);
-  y[i] = fromf<T>(v);
+// axis: y[t] = x[t + off] + x[t + off - hop] over x, y [Trows, d], a row
+// outside [0, Trows) reading as 0, the float32 sum rounded once (a + b
+// in the plain version's order, so float32 is bit-equal to it).  VEC (d
+// a multiple of 8, x and y 16-byte aligned): a thread takes 8
+// consecutive values of a row at a time, by 16-byte loads and stores
+// (two of each in float32), over a grid-stride loop.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(NT)
+    ola(int Trows, int hop, int off, int d, const T* __restrict__ x,
+        T* __restrict__ y) {
+  constexpr int V = VEC ? 8 : 1;
+  const long long n = (long long)Trows * d;
+  const long long step = (long long)gridDim.x * NT * V;
+  for (long long i = ((long long)blockIdx.x * NT + threadIdx.x) * V; i < n;
+       i += step) {
+    const int t = (int)(i / d), c = (int)(i - (long long)t * d);
+    const int u = t + off;
+    const bool ha = u < Trows, hb = u >= hop && u - hop < Trows;
+    if constexpr (VEC) {
+      float a[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      float b[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (ha) ld8(a, x + (size_t)u * d + c);
+      if (hb) ld8(b, x + (size_t)(u - hop) * d + c);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) a[j] += b[j];
+      st16(y + i, a);
+      if constexpr (sizeof(T) == 4) st16(y + i + 4, a + 4);
+    } else {
+      const float a = ha ? tof(x[(size_t)u * d + c]) : 0.f;
+      const float b = hb ? tof(x[(size_t)(u - hop) * d + c]) : 0.f;
+      y[i] = fromf<T>(a + b);
+    }
+  }
 }
 
 // The reshape probe's five layouts (and the dot probe's leading split).
@@ -525,36 +507,8 @@ __global__ void compose(int hop, int d, int E, const float* __restrict__ x,
 // design" in the header)
 // ---------------------------------------------------------------------------
 
-// ---- cluster and copy primitives (PTX) ----
-
-__device__ __forceinline__ int cluster_rank() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return (int)r;
-}
-
-// every thread of every block of the cluster, release/acquire: what a
-// block wrote to its shared memory before it is visible to all after it
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
-}
-
-// the 16 bytes at local shared address p, as block `rank` of the cluster
-// holds them (callers load every rank before adding, so the loads issue
-// together)
-__device__ __forceinline__ float4 ld_cluster4(const void* p, int rank) {
-  uint32_t a;
-  asm("mapa.shared::cluster.u32 %0, %1, %2;"
-      : "=r"(a)
-      : "r"(smem_addr(p)), "r"(rank));
-  float4 v;
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(a)
-               : "memory");
-  return v;
-}
+// ---- mbarrier and bulk-copy primitives (PTX; the cluster ones are in
+// train_common.cuh) ----
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
@@ -606,7 +560,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(NT) : "memory");
 }
-// ---- end of the cluster and copy primitives ----
+// ---- end of the mbarrier and bulk-copy primitives ----
 
 constexpr int US = 128;   // columns of W a block keeps (its slice)
 constexpr int UK = 128;   // widest K2 = 2d
@@ -1400,10 +1354,11 @@ inline BwdSplit bwd_split(const Frames& f, int clusters) {
 }
 
 cudaLaunchConfig_t cluster_config(dim3 grid, int cs, size_t smem,
-                                  cudaStream_t st, cudaLaunchAttribute* attr) {
+                                  cudaStream_t st, cudaLaunchAttribute* attr,
+                                  int threads = NTB) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
-  cfg.blockDim = dim3(NTB, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -1459,100 +1414,79 @@ int run_cond_bwd(const Frames& f, const float* dcond, const void* e,
   return (int)last_error();
 }
 
+// nd,rde->nre (see dot_nre): one launch
 template <typename T>
-size_t fwd_smem(int K) {
-  return (size_t)(words<T>(FM * (K + PAD)) + words<T>(KMAX * (FN + PAD)) +
-                  FM * (FN + 4)) * sizeof(float);
-}
-
-template <typename T>
-size_t rows_smem() {
-  return (size_t)(words<T>(RM * (RK + PAD)) + words<T>(RK * (RN + PAD)) +
-                  RM * (RN + 4)) * sizeof(float);
-}
-
-template <typename T>
-size_t atb_smem() {
-  return (size_t)(2 * words<T>(AK * (AT + PAD)) + AT * (AT + 4)) *
-         sizeof(float);
-}
-
-// tap product over Q rows of G groups (see tap_fwd)
-template <typename T>
-int run_tap_fwd(int G, int P, int Q, int hop, int d, int off, int Trows,
-                const void* e, const void* w, TapW tw, void* y,
+int run_dot_nre(int N, int hop, int d, const void* e, const void* w, void* y,
                 cudaStream_t st) {
-  if (d < 16 || d % 16 || d > KMAX || hop < 1) return -2;
-  const size_t sm = fwd_smem<T>(d);
-  auto k = tap_fwd<T>;
+  constexpr int RB = NT / (NR_C * (int)sizeof(T) / 16);   // rows a block
+  const size_t sm =
+      (size_t)RB * (d + 4) * sizeof(float) + (size_t)d * NR_C * sizeof(T);
+  auto k = dot_nre<T>;
   VQT_TRY(smem_opt_in(k, sm));
-  dim3 grid(cdiv(Q, FM), cdiv((long long)hop * d, FN), G);
-  KLAUNCH(k, grid, NT, sm, st, P, Q, hop, d, off, Trows, (const T*)e,
-          (const T*)w, tw, (T*)y);
+  KLAUNCH(k, dim3(hop, cdiv(d, NR_C), cdiv(N, RB)), NT, sm, st, N, hop, d,
+          (const T*)e, (const T*)w, (T*)y);
   return (int)last_error();
 }
 
-// The split-K policy of run_rows_mm and run_atb_win, about 4 blocks per
-// SM, kept in one place: the K (rows) each split takes, and the float32
-// scratch a call needs, which the vqvae_*_scratch entry points export so
-// that callers size `part` from the same formulas.
-inline int rows_kchunk(int M, int K, int Nout) {
-  const int tiles = cdiv(M, RM) * cdiv(Nout, RN);
-  const int n = std::max(1, std::min(cdiv(4 * 132, tiles), cdiv(K, RK)));
-  return cdiv(cdiv(K, n), RK) * RK;
-}
-inline long long rows_scratch(int M, int K, int Nout) {
-  return (long long)cdiv(K, rows_kchunk(M, K, Nout)) * M * Nout;
-}
-inline int atb_chunk(int M, int d, int N) {
-  const int tiles = cdiv(d, AT) * cdiv(N, AT);
-  const int n = std::max(1, std::min(cdiv(4 * 132, tiles), cdiv(M, 4 * AK)));
-  return cdiv(M, n);
-}
-inline long long atb_scratch(int M, int d, int N) {
-  return (long long)cdiv(M, atb_chunk(M, d, N)) * d * N;
-}
-
-// out[M, Nout] = window(X) @ B, split over K (about 4 blocks per SM)
-// through the scratch part (-1 if smaller than rows_scratch), the
-// splits added in order
+// nrd,rde->ne (see dot_ne): one launch of 8-block clusters
 template <typename T>
-int run_rows_mm(int M, int K, int Nout, Win win, const float* X,
-                const void* W, long long sk, long long sc, float* out,
-                float* part, long long part_cap, cudaStream_t st) {
-  if ((sk != 1 && sc != 1) || (sk % 8 && sc % 8) || win.d % 8 || K % 8 ||
-      Nout % 8)
-    return -2;
-  const int kchunk = rows_kchunk(M, K, Nout), nsplit = cdiv(K, kchunk);
-  if ((long long)nsplit * M * Nout > part_cap) return -1;
-  const size_t sm = rows_smem<T>();
-  auto k = rows_mm<T>;
-  VQT_TRY(smem_opt_in(k, sm));
-  KLAUNCH(k, dim3(cdiv(M, RM), cdiv(Nout, RN), nsplit), NT, sm, st, M, K,
-          Nout, kchunk, win, X, (const T*)W, sk, sc, part);
-  VQT_TRY(last_error());
-  KLAUNCH(reduce_parts, cdiv((long long)M * Nout, NT), NT, 0, st, nsplit,
-          M * Nout, part, out, 0);
+int run_dot_ne(int N, int hop, int d, const float* dp, const void* w,
+               float* out, cudaStream_t st) {
+  const int K = hop * d, kc = cdiv(cdiv(K, NE_CS), 8) * 8;
+  const size_t sm = ((size_t)NE_R * (NE_KB + 4) + words<T>(NE_KB * NE_C) +
+                     (NE_SUB + NE_CS) * NE_O) * sizeof(float);
+  auto k = dot_ne<T>;
+  static bool opted = false;
+  if (!opted) {
+    VQT_TRY(smem_opt_in(k, sm));
+    opted = true;
+  }
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      cluster_config(dim3(NE_CS, cdiv(d, NE_C), cdiv(N, NE_R)), NE_CS, sm,
+                     st, attr, NT);
+  VQT_TRY(cudaLaunchKernelEx(&cfg, k, N, K, d, kc, dp, (const T*)w, out));
   return (int)last_error();
 }
 
-// out[d, N] = sum_m E[m]^T window(m): split-K partials (-1 if part is
-// smaller than atb_scratch), then reduce_parts adds them in split order
+// nd,nre->dre (see dot_dre): one launch
 template <typename T>
-int run_atb_win(int M, int d, int N, Win win, const void* E, const float* X,
-                float* out, float* part, long long part_cap, cudaStream_t st) {
-  if (d % 8 || N % 8) return -2;
-  const int chunk = atb_chunk(M, d, N), nsplit = cdiv(M, chunk);
-  if ((long long)nsplit * d * N > part_cap) return -1;
-  const size_t sm = atb_smem<T>();
-  auto k = atb_win<T>;
-  VQT_TRY(smem_opt_in(k, sm));
-  KLAUNCH(k, dim3(cdiv(d, AT), cdiv(N, AT), nsplit), NT, sm, st, M, d, N,
-          chunk, win, (const T*)E, X, part);
-  VQT_TRY(last_error());
-  KLAUNCH(reduce_parts, cdiv((long long)d * N, NT), NT, 0, st, nsplit,
-          d * N, part, out, 0);
+int run_dot_dre(int N, int hop, int d, const void* e, const float* dp,
+                float* out, cudaStream_t st) {
+  const int M = hop * d;
+  const size_t sm = (size_t)DR_N * (DR_I + DR_C) * sizeof(float);
+  KLAUNCH(dot_dre<T>, dim3(cdiv(M, DR_C), cdiv(d, DR_I)), NT, sm, st, N, d,
+          M, (const T*)e, dp, out);
   return (int)last_error();
+}
+
+// the overlap-add (see ola): 16-byte pieces where d and the pointers allow
+template <typename T>
+int run_ola(int Trows, int hop, int off, int d, const void* x, void* y,
+            cudaStream_t st) {
+  const long long n = (long long)Trows * d;
+  const bool vec = d % 8 == 0 && ((reinterpret_cast<uintptr_t>(x) |
+                                   reinterpret_cast<uintptr_t>(y)) & 15) == 0;
+  const int grid = (int)std::max<long long>(
+      1, std::min<long long>(cdiv(vec ? n / 8 : n, NT), 4LL * num_sms()));
+  if (vec) {
+    auto k = ola<T, true>;
+    KLAUNCH(k, grid, NT, 0, st, Trows, hop, off, d, (const T*)x, (T*)y);
+  } else {
+    auto k = ola<T, false>;
+    KLAUNCH(k, grid, NT, 0, st, Trows, hop, off, d, (const T*)x, (T*)y);
+  }
+  return (int)last_error();
+}
+
+// the shapes the contractions take: d a multiple of 8 up to 256, every
+// operand 16-byte aligned
+inline bool dot_ok(int N, int hop, int d,
+                   std::initializer_list<const void*> ps) {
+  if (N < 1 || hop < 1 || d < 8 || d % 8 || d > 256) return false;
+  for (const void* p : ps)
+    if (reinterpret_cast<uintptr_t>(p) & 15) return false;
+  return true;
 }
 
 template <typename F>
@@ -1605,50 +1539,39 @@ int vqvae_cond_bwd(int dtype, int B, int Tl, int hop, int d,
   });
 }
 
-// nd,rde->nre: out [N, hop, d] (dtype) = e [N, d] x W [hop, d, d]; the tap
-// product with the overlap-add off
+// nd,rde->nre: out [N, hop, d] (dtype) = e [N, d] x W [hop, d, d]; the
+// tap product with the overlap-add off.  -2 for shapes the kernel does
+// not take (dot_ok).
 int vqvae_dot_nre(int dtype, int N, int hop, int d, const void* e,
                   const void* w, void* out, void* stream) {
-  if (N < 1 || hop < 1) return -2;
-  const TapW tw{d, (long long)d * d};
+  if (!dot_ok(N, hop, d, {e, w, out})) return -2;
   return by_dtype(dtype, [&](auto z) {
-    return run_tap_fwd<decltype(z)>(1, N, N, hop, d, 0, N * hop, e, w, tw,
-                                    out, (cudaStream_t)stream);
+    return run_dot_nre<decltype(z)>(N, hop, d, e, w, out,
+                                    (cudaStream_t)stream);
   });
-}
-
-// The float32 scratch of vqvae_dot_ne and of vqvae_dot_dre.
-long long vqvae_dot_ne_scratch(int N, int hop, int d) {
-  return rows_scratch(N, hop * d, d);
-}
-long long vqvae_dot_dre_scratch(int N, int hop, int d) {
-  return atb_scratch(N, d, hop * d);
 }
 
 // nrd,rde->ne: out [N, d] float32 = dp [N, hop, d] (float32, rounded to
 // dtype) x W [hop, d, d] (dtype); the upsampler's de with windows of hop
-// rows and no overlap
+// rows and no overlap.  One launch, no scratch.
 int vqvae_dot_ne(int dtype, int N, int hop, int d, const float* dp,
-                 const void* w, float* out, float* part, long long part_cap,
-                 void* stream) {
-  if (N < 1 || hop < 1 || d < 1) return -2;
-  const Win win{N, hop, 0, N * hop, d};
+                 const void* w, float* out, void* stream) {
+  if (!dot_ok(N, hop, d, {dp, w, out})) return -2;
   return by_dtype(dtype, [&](auto z) {
-    return run_rows_mm<decltype(z)>(N, hop * d, d, win, dp, w, d, 1, out,
-                                    part, part_cap, (cudaStream_t)stream);
+    return run_dot_ne<decltype(z)>(N, hop, d, dp, w, out,
+                                   (cudaStream_t)stream);
   });
 }
 
-// nd,nre->dre: out [d, hop, d] float32 = sum_n e[n]^T dp[n]; the
-// upsampler's duw with windows of hop rows and no overlap
+// nd,nre->dre: out [d, hop, d] float32 = sum_n e[n]^T dp[n] (dp float32,
+// rounded to dtype); the upsampler's duw with windows of hop rows and no
+// overlap.  One launch, no scratch.
 int vqvae_dot_dre(int dtype, int N, int hop, int d, const void* e,
-                  const float* dp, float* out, float* part,
-                  long long part_cap, void* stream) {
-  if (N < 1 || hop < 1 || d < 1) return -2;
-  const Win win{N, hop, 0, N * hop, d};
+                  const float* dp, float* out, void* stream) {
+  if (!dot_ok(N, hop, d, {e, dp, out})) return -2;
   return by_dtype(dtype, [&](auto z) {
-    return run_atb_win<decltype(z)>(N, d, hop * d, win, e, dp, out, part,
-                                    part_cap, (cudaStream_t)stream);
+    return run_dot_dre<decltype(z)>(N, hop, d, e, dp, out,
+                                    (cudaStream_t)stream);
   });
 }
 
@@ -1658,10 +1581,8 @@ int vqvae_ola(int dtype, int Trows, int hop, int off, int d, const void* x,
               void* y, void* stream) {
   if (Trows < 1 || hop < 1 || off < 0 || d < 1) return -2;
   return by_dtype(dtype, [&](auto z) {
-    using T = decltype(z);
-    KLAUNCH(ola<T>, cdiv((long long)Trows * d, NT), NT, 0,
-            (cudaStream_t)stream, hop, off, Trows, d, (const T*)x, (T*)y);
-    return (int)last_error();
+    return run_ola<decltype(z)>(Trows, hop, off, d, x, y,
+                                (cudaStream_t)stream);
   });
 }
 

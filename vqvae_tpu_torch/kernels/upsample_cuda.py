@@ -1,8 +1,8 @@
 """The upsampler computed from latent frames, forward and backward: the
 CUDA kernels ``csrc/upsample.cu`` and their plain PyTorch versions (port
 of ``scripts/cond_inkernel_probe.py``'s ``_cond_fwd_body`` and
-``_cond_bwd_body``), with the layout and contraction probes that share
-their routines (``scripts/mosaic_dot_probe.py``,
+``_cond_bwd_body``), with the kernels of the layout and contraction
+probes (``scripts/mosaic_dot_probe.py``,
 ``scripts/mosaic_reshape_probe.py``).
 
 The upsampler is the stride-``hop`` SAME transposed conv of
@@ -28,7 +28,8 @@ runs the plain version for CPU tensors and launches its kernel (or
 raises) for CUDA tensors; ``launches`` counts kernel calls by name.  The
 probes' functions (``tap_product``, ``tap_adjoint``, ``tap_wgrad``,
 ``overlap_add``, ``relayout``, ``compose``) keep the JAX probes' shapes:
-``W [hop, d, d]``, ``dp [N, hop, d]``.
+``W [hop, d, d]``, ``dp [N, hop, d]``; ``tap_adjoint_split`` is the order
+in which its kernel splits and adds ``nrd,rde->ne``, in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -234,7 +235,7 @@ def cond_bwd_partitioned(dcond, e, uwk, hop: int, sms: int = 132):
 # ---------------------------------------------------------------------------
 
 _lib = None
-_relayout_fn = None   # the bound vqvae_relayout, looked up once
+_fns: dict = {}   # entry points of the library, looked up once each
 
 
 def _library():
@@ -246,8 +247,8 @@ def _library():
             "vqvae_cond_fwd": [i] * 5 + [p] * 5,
             "vqvae_cond_bwd": [i] * 5 + [p] * 7 + [ll, p, p],
             "vqvae_dot_nre": [i] * 4 + [p] * 4,
-            "vqvae_dot_ne": [i] * 4 + [p] * 4 + [ll, p],
-            "vqvae_dot_dre": [i] * 4 + [p] * 4 + [ll, p],
+            "vqvae_dot_ne": [i] * 4 + [p] * 4,
+            "vqvae_dot_dre": [i] * 4 + [p] * 4,
             "vqvae_ola": [i] * 5 + [p] * 3,
             "vqvae_relayout": [ll, p, p, p],
             "vqvae_compose": [i] * 4 + [p] * 5,
@@ -256,27 +257,30 @@ def _library():
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = i
-        for name, nargs in (("cond_bwd", 4), ("dot_ne", 3), ("dot_dre", 3)):
-            fn = getattr(lib, f"vqvae_{name}_scratch")
-            fn.argtypes = [i] * nargs
-            fn.restype = ll
+        lib.vqvae_cond_bwd_scratch.argtypes = [i] * 4
+        lib.vqvae_cond_bwd_scratch.restype = ll
         _lib = lib
     return _lib
 
 
-def _stream(t: torch.Tensor):
-    return torch.cuda.current_stream(t.device).cuda_stream
+def _stream(t: torch.Tensor) -> int:
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _scratch(name: str, *shape: int, device) -> torch.Tensor:
-    """The float32 scratch a split-K entry point needs, sized by the
-    kernel library's own split policy (``vqvae_<name>_scratch``)."""
+    """The float32 scratch an entry point needs, sized by the kernel
+    library's own split policy (``vqvae_<name>_scratch``)."""
     cap = getattr(_library(), f"vqvae_{name}_scratch")(*shape)
     return torch.empty(cap, dtype=torch.float32, device=device)
 
 
 def _call(name: str, counter: str, *args) -> None:
-    err = getattr(_library(), name)(*args)
+    """One ctypes call of an entry point on the current stream, counted
+    as one launch of ``counter``; the host path of every probe kernel."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = _fns[name] = getattr(_library(), name)
+    err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name} failed: error {err} (-2: shapes the "
                            f"kernel does not take)")
@@ -422,9 +426,10 @@ def cond_upsample(e, uwk, ub, hop: int) -> torch.Tensor:
 
 # ---------------------------------------------------------------------------
 # the dot and reshape probes: the three contractions, the time-axis
-# overlap-add, the layouts and the composition, through the upsampler's
-# routines.  Each has its plain version (``*_plain``), its kernel
-# (``*_kernel``) and the dispatch by device.
+# overlap-add, the layouts and the composition, each its own kernel of
+# csrc/upsample.cu.  Each has its plain version (``*_plain``), its kernel
+# (``*_kernel``, one ctypes call after its checks) and the dispatch by
+# device.
 # ---------------------------------------------------------------------------
 
 
@@ -436,14 +441,22 @@ def tap_product_plain(e, W) -> torch.Tensor:
                         W.to(e.dtype).float()).to(e.dtype)
 
 
+def _check_dot(d: int) -> None:
+    if d % 8 or not 8 <= d <= 256:
+        raise ValueError(f"the dot probe's kernels take widths 8..256 in "
+                         f"steps of 8, got {d}")
+
+
 def tap_product_kernel(e, W) -> torch.Tensor:
+    """The kernel's ``nd,rde->nre`` (one launch); see
+    ``tap_product_plain``."""
     N, d = e.shape
     hop = W.shape[0]
     _check(e.dtype, e, W)
-    _check_width(d)
+    _check_dot(d)
     if tuple(W.shape) != (hop, d, d):
         raise ValueError(f"W must be [hop, {d}, {d}], got {tuple(W.shape)}")
-    e, W = e.contiguous(), W.to(e.dtype).contiguous()
+    e, W = _aligned(e), _aligned(W.to(e.dtype))
     out = torch.empty(N, hop, d, dtype=e.dtype, device=e.device)
     _call("vqvae_dot_nre", "probe_dot", _CDTYPE[e.dtype], N, hop, d,
           e.data_ptr(), W.data_ptr(), out.data_ptr(), _stream(e))
@@ -457,17 +470,51 @@ def tap_adjoint_plain(dp, W) -> torch.Tensor:
     return torch.einsum("nrd,rde->ne", dp.to(W.dtype).float(), W.float())
 
 
+# the nrd,rde->ne kernel's split (csrc/upsample.cu, dot_ne)
+NE_CS = 8     # blocks a cluster: K = hop·d in NE_CS ranges
+NE_KB = 512   # values of K a block stages at once
+NE_KS = 16    # values of K of a stage one thread sums (NE_KB / NE_KS
+              # sub-ranges a stage)
+
+
+def tap_adjoint_split(dp, W) -> torch.Tensor:
+    """``nrd,rde->ne`` as the kernel splits and adds it, in plain
+    PyTorch: K = hop·d in ``NE_CS`` ranges of ``kc`` (rank q's); in a
+    rank, stages of ``NE_KB`` values cut into sub-ranges of ``NE_KS``,
+    sub-range s summing its values of every stage; the rank's sum adds
+    its sub-ranges in order, and the ranks are added in rank order
+    (float32)."""
+    N, hop, d = dp.shape
+    K = hop * d
+    A = dp.to(W.dtype).float().reshape(N, K)
+    B = W.float().reshape(K, d)
+    kc = -(-(-(-K // NE_CS)) // 8) * 8
+    total = None
+    for q in range(NE_CS):
+        k0, k1 = q * kc, min(K, (q + 1) * kc)
+        rank = None
+        for s in range(NE_KB // NE_KS):
+            ks = [k for kb in range(k0, k1, NE_KB)
+                  for k in range(kb + s * NE_KS, kb + (s + 1) * NE_KS)
+                  if k < k1]
+            part = A[:, ks] @ B[ks] if ks else A.new_zeros(N, d)
+            rank = part if rank is None else rank + part
+        total = rank if total is None else total + rank
+    return total
+
+
 def tap_adjoint_kernel(dp, W) -> torch.Tensor:
+    """The kernel's ``nrd,rde->ne`` (one launch, no scratch); see
+    ``tap_adjoint_plain``."""
     N, hop, d = dp.shape
     _check(W.dtype, dp, W)
+    _check_dot(d)
     if tuple(W.shape) != (hop, d, d):
         raise ValueError(f"W must be [{hop}, {d}, {d}]")
-    dp, W = dp.float().contiguous(), W.contiguous()
+    dp, W = _aligned(dp.float()), _aligned(W)
     out = torch.empty(N, d, dtype=torch.float32, device=dp.device)
-    part = _scratch("dot_ne", N, hop, d, device=dp.device)
     _call("vqvae_dot_ne", "probe_dot", _CDTYPE[W.dtype], N, hop, d,
-          dp.data_ptr(), W.data_ptr(), out.data_ptr(), part.data_ptr(),
-          part.numel(), _stream(dp))
+          dp.data_ptr(), W.data_ptr(), out.data_ptr(), _stream(dp))
     return out
 
 
@@ -479,16 +526,17 @@ def tap_wgrad_plain(e, dp) -> torch.Tensor:
 
 
 def tap_wgrad_kernel(e, dp) -> torch.Tensor:
+    """The kernel's ``nd,nre->dre`` (one launch, no scratch, the N rows
+    summed in order); see ``tap_wgrad_plain``."""
     N, hop, d = dp.shape
     _check(e.dtype, e, dp)
+    _check_dot(d)
     if tuple(e.shape) != (N, d):
         raise ValueError(f"e must be [{N}, {d}]")
-    e, dp = e.contiguous(), dp.float().contiguous()
+    e, dp = _aligned(e), _aligned(dp.float())
     out = torch.empty(d, hop, d, dtype=torch.float32, device=e.device)
-    part = _scratch("dot_dre", N, hop, d, device=e.device)
     _call("vqvae_dot_dre", "probe_dot", _CDTYPE[e.dtype], N, hop, d,
-          e.data_ptr(), dp.data_ptr(), out.data_ptr(), part.data_ptr(),
-          part.numel(), _stream(e))
+          e.data_ptr(), dp.data_ptr(), out.data_ptr(), _stream(e))
     return out
 
 
@@ -503,6 +551,8 @@ def overlap_add_plain(x, hop: int) -> torch.Tensor:
 
 
 def overlap_add_kernel(x, hop: int) -> torch.Tensor:
+    """The kernel's overlap-add (one launch); float32 is bit-equal to
+    ``overlap_add_plain``."""
     T, d = x.shape
     _check(x.dtype, x)
     x = x.contiguous()
@@ -534,16 +584,10 @@ def relayout_kernel(x, shape, counter: str = "probe_reshape"
     if not x.is_cuda:
         raise ValueError(f"relayout_kernel takes a CUDA tensor, got "
                          f"{x.device}")
-    global _relayout_fn
-    if _relayout_fn is None:
-        _relayout_fn = _library().vqvae_relayout
     x = x.contiguous()
     y = x.new_empty(shape)
-    err = _relayout_fn(n, x.data_ptr(), y.data_ptr(),
-                       torch._C._cuda_getCurrentRawStream(x.get_device()))
-    if err != 0:
-        raise RuntimeError(f"vqvae_relayout failed: error {err}")
-    launches[counter] += 1
+    _call("vqvae_relayout", counter, n, x.data_ptr(), y.data_ptr(),
+          _stream(x))
     return y
 
 

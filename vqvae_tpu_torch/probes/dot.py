@@ -11,8 +11,10 @@ against ``torch.einsum`` within 1e-4 of max; the leading-dim split
 ``[N·hop, d] -> [N, hop, d]`` (the relayout kernel) and the pad/add/slice
 on the time axis (the upsampler's overlap-add on its own), both bit-equal.
 Then it times each body (CUDA events) beside its plain version and, where
-one exists, one library call (``einsum``; ``clone`` of the reshape).  The
-last line is one JSON object.
+one exists, one library call (``einsum``; ``clone`` of the reshape): per
+call (``ms``, the host's enqueue included) and by CUDA-graph replay
+(``graph_ms``, ``library_graph_ms``: the card's time alone).  The last
+line is one JSON object.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from vqvae_tpu_torch.probes._common import (
     add_device_arg,
     cuda_ms,
     device_name,
+    graph_ms,
     finish,
     resolve_device,
 )
@@ -91,15 +94,19 @@ def main(argv=None) -> None:
         for name, kern, *_ in rows:
             record["times"][name] = {"ms": cuda_ms(kern, dev, REPS)}
         record["launches"] = dict(uc.launches)
-        for name, _, plain, lib, _ in rows:
+        for name, kern, plain, lib, _ in rows:
             record["times"][name].update(
+                graph_ms=graph_ms(kern, dev, REPS),
                 plain_ms=cuda_ms(plain, dev, REPS),
-                library_ms=cuda_ms(lib, dev, REPS) if lib else None)
+                library_ms=cuda_ms(lib, dev, REPS) if lib else None,
+                library_graph_ms=graph_ms(lib, dev, REPS) if lib else None)
         for name, t in record["times"].items():
-            print(f"{name}: kernel {1e3 * t['ms']:.2f} us, plain "
-                  f"{1e3 * t['plain_ms']:.2f} us, library "
-                  + (f"{1e3 * t['library_ms']:.2f} us" if t["library_ms"]
-                     else "none"), flush=True)
+            print(f"{name}: kernel {1e3 * t['ms']:.2f} us a call, "
+                  f"{1e3 * t['graph_ms']:.3f} us by graph replay; plain "
+                  f"{1e3 * t['plain_ms']:.2f} us; library "
+                  + (f"{1e3 * t['library_ms']:.2f} us a call, "
+                     f"{1e3 * t['library_graph_ms']:.3f} us by graph replay"
+                     if t["library_ms"] else "none"), flush=True)
     finish(record, checks)
 
 
