@@ -10,7 +10,7 @@ nonzero:
 
 1. device  — the card's name and power limit (nvidia-smi); CUDA must be
              available; TF32 off for the plain references.
-2. build   — compile the port's seven CUDA sources
+2. build   — compile the port's eight CUDA sources
              (``vqvae_tpu_torch/csrc/*.cu``), one nvcc each, side by side.
 3. kernel  — the decode kernel (one 16-block cluster per row) against
              its plain PyTorch version at
@@ -86,8 +86,9 @@ nonzero:
              ``--resume`` to 4, whose weights.npz must equal the straight
              run's at rtol 1e-6; 2 steps with ``--bwd-windows 4``.  Each
              exits 0 with finite losses and val_ keys in log.jsonl, and
-             its launch counts show the recompute (or windowed) backward
-             and the VQ kernel launched.
+             its launch counts show the recompute (or windowed) backward,
+             the VQ kernel and the embedding's take_rows backward
+             launched.
 11. train-time-vctk — vctk-multi at its preset B=16, T=7680, bf16 with
              the VQ kernel: step time and peak memory with the recompute
              backward, the windowed backward (4 windows), saved gates and
@@ -96,6 +97,14 @@ nonzero:
              search against their plain versions at these shapes, each
              timed beside its plain version and its bound (the VQ search
              at N = 1920 and 7680, per call and by CUDA-graph replay);
+             the recompute step's profile must show the embedding's
+             take_rows kernel twice a step and at most the two scatters
+             JAX keeps plain (speaker, codebook); the take_rows backward
+             (``kernels/embed_cuda.py``) against its plain version at
+             B=16, T=7680, V=256, C=64, float32 (1e-4) and bfloat16
+             (3e-2), uniform ids and every id the same, a second call the
+             same bits, timed per call and by graph replay beside its
+             bound, the plain version, index_add_ and autograd's scatter;
              and the step with the fused encoder (encoder_kernel=pallas).
 12. enc-kernel — the fused encoder's forward and recompute backward
              against their plain versions at vctk-multi width (C=128, d=64,
@@ -137,7 +146,8 @@ nonzero:
              and by CUDA-graph replay beside einsum; the reshape probe's five
              layouts (bit-equal; the flat copy timed per call and by
              CUDA-graph replay beside clone, both ways) and its fused
-             composition (1e-4); the bf16 and int8 decode chains at L=2
+             composition (1e-4; timed per call and by graph replay beside
+             its bound and one einsum, both ways); the bf16 and int8 decode chains at L=2
              and L=30, 1 and 2 steps (int8 bit-equal, bf16 3e-2 of max,
              outputs not zero), timed at L=30, STEPS=128: each chain's ns
              a layer and their int8/bf16 ratio beside the decode kernel's
@@ -632,6 +642,13 @@ def compose_work(N, hop, d, E):
     """(flops, bytes) of ((x @ w).reshape(N·hop, d)) @ v, float32."""
     return (2 * N * d * hop * d + 2 * N * hop * d * E,
             4 * (N * d + d * hop * d + d * E + N * hop * E))
+
+
+def take_rows_work(M, V, C, es, isz):
+    """(flops, bytes) of the take_rows backward: one float32 add for each
+    of the M·C values of g; g (es bytes a value) and the ids (isz bytes)
+    read once, dw [V, C] (es bytes) written once."""
+    return M * C, M * C * es + M * isz + V * C * es
 
 
 def chain_work(L, steps, rows, width, int8):
@@ -1248,7 +1265,7 @@ def train_cli_vctk_phase():
         a, b, c = (os.path.join(work, x) for x in ("straight", "resumed",
                                                     "windowed"))
         counts, recs = train_vctk(tree, a, 4)
-        path = ("chunk_fwd", "chunk_bwd_rec", "vq_argmin")
+        path = ("chunk_fwd", "chunk_bwd_rec", "vq_argmin", "take_rows_bwd")
         check(all(counts[k] > 0 for k in path) and counts["chunk_bwd"] == 0
               and counts["chunk_bwd_win"] == 0,
               f"vctk-multi did not run the recompute path: {counts}")
@@ -1279,7 +1296,8 @@ def train_cli_vctk_phase():
             f"run's launches {rcounts}")
         t0 = time.monotonic()
         wcounts, wrecs = train_vctk(tree, c, 2, "--bwd-windows", "4")
-        check(wcounts["chunk_bwd_win"] > 0 and wcounts["vq_argmin"] > 0,
+        check(wcounts["chunk_bwd_win"] > 0 and wcounts["vq_argmin"] > 0
+              and wcounts["take_rows_bwd"] > 0,
               f"--bwd-windows 4 did not run the windowed backward: {wcounts}")
         say("train-cli-vctk", t0, f"--bwd-windows 4, 2 steps: exit 0; step 1"
             f" loss1 {wrecs[0]['loss1']:.4f}; launches {wcounts}")
@@ -1363,6 +1381,19 @@ def train_time_vctk_phase(device, errs):
     for ms_, key, count in rows[:14]:
         print(f"    {100 * ms_ / busy:5.1f}%  {ms_ / 2:9.3f} ms/step  "
               f"x{count // 2:<4d} {key[:90]}", flush=True)
+    # the input embedding's two taps run the take_rows kernel (2 a step);
+    # the scatter launches left are the gathers JAX keeps plain (speaker,
+    # codebook)
+    taps = sum(c for _, k, c in rows if "take_rows_parts" in k)
+    scat = [(k, c // 2, ms_ / 2) for ms_, k, c in rows
+            if "indexing_backward" in k]
+    say("train-time-vctk", t0, f"recompute step: take_rows_parts x{taps // 2}"
+        f" a step; indexing_backward_kernel left (a step): " + ", ".join(
+            f"{k[:60]} x{c} {m:.3f} ms" for k, c, m in scat))
+    check(taps == 4, f"the embedding taps did not run the take_rows kernel "
+          f"twice a step: {taps} launches in 2 steps")
+    check(sum(c for _, c, _ in scat) <= 2, f"more scatter launches than the "
+          f"speaker and codebook gathers: {scat}")
     del step
     torch.cuda.empty_cache()
 
@@ -1428,7 +1459,68 @@ def train_time_vctk_phase(device, errs):
             f"{gms * 1e3:.3f} us by graph replay; plain (addmm + argmax) "
             f"{pms * 1e3:.1f} us; bound {bms * 1e3:.2f} us ({bby}, float32 "
             f"at 67 TFLOP/s: {100 * bms / gms:.1f}% of the card's time)")
+    out["take_rows_bwd"] = take_rows_check(device, errs, B, T, mc.mu,
+                                           mc.residual_channels)
     return out
+
+
+def take_rows_check(device, errs, B, T, V, C):
+    """The take_rows backward kernel (``kernels/embed_cuda.py``) against
+    its plain version at vctk-multi's shape (ids int32 [B, T], g [B, T,
+    C]): float32 within 1e-4 and bfloat16 within 3e-2 of max, uniform
+    ids and every id the same; a second call the same bits.  Timed in
+    bf16 (uniform ids) per call and by graph replay beside the plain
+    version, its bound and one index_add_ (the library yardstick) and
+    the scatter PyTorch's autograd ran for w[ids] (index_put_ with
+    accumulate).  Returns the kernels-line fields."""
+    import torch
+    from vqvae_tpu_torch.kernels import embed_cuda as ebc
+    from vqvae_tpu_torch.probes._common import graph_ms
+    t0 = time.monotonic()
+    gen = torch.Generator().manual_seed(3)
+    res = None
+    for cdt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+        for skew in (False, True):
+            ids = (torch.full((B, T), 37, dtype=torch.int32) if skew else
+                   torch.randint(0, V, (B, T), generator=gen,
+                                 dtype=torch.int32)).to(device)
+            g = torch.randn(B, T, C, generator=gen).to(device, cdt)
+            got = ebc.take_rows_bwd_kernel(ids, g, V, cdt)
+            want = ebc.take_rows_bwd_plain(ids, g, V, cdt)
+            compare("take_rows_bwd", [got], [want], tol, errs)
+            check(torch.equal(ebc.take_rows_bwd_kernel(ids, g, V, cdt), got),
+                  f"take_rows {cdt} skew={skew}: a second call gave other "
+                  "bits")
+            if skew:
+                check(not torch.cat([got[:37], got[38:]]).any(),
+                      "take_rows: rows no id names are not zero")
+            elif cdt == torch.bfloat16:
+                res = ids, g
+    ids, g = res
+    kern = lambda: ebc.take_rows_bwd_kernel(ids, g, V, torch.bfloat16)
+    il, gf = ids.reshape(-1).long(), g.reshape(-1, C)
+    lib = lambda: torch.zeros(V, C, device=device).index_add_(0, il,
+                                                               gf.float())
+    scatter = lambda: torch.zeros(V, C, device=device,
+                                  dtype=torch.bfloat16).index_put_(
+        (il,), gf, accumulate=True)
+    ms_ = cuda_ms(kern, reps=20)
+    gms = graph_ms(kern, device, 20)
+    pms = cuda_ms(lambda: ebc.take_rows_bwd_plain(ids, g, V, torch.bfloat16),
+                  reps=5)
+    lms, lgms = cuda_ms(lib, reps=20), graph_ms(lib, device, 20)
+    sms = cuda_ms(scatter, reps=5)
+    bms, bby = bound(*take_rows_work(B * T, V, C, 2, 4), peak=PEAK_F32)
+    say("train-time-vctk", t0, f"take_rows backward (ids int32 [{B}, {T}], "
+        f"g bf16 [.., {C}], V={V}): f32 and bf16, uniform and one id, within "
+        f"1e-4 / 3e-2, a second call the same bits; kernel {ms_ * 1e3:.2f} us "
+        f"a call, {gms * 1e3:.3f} us by graph replay; bound {bms * 1e3:.2f} "
+        f"us ({bby}: {100 * bms / gms:.1f}% of the card's time); plain "
+        f"(one-hot matmul) {pms * 1e3:.1f} us; index_add_ {lms * 1e3:.2f} us "
+        f"a call, {lgms * 1e3:.3f} by graph; autograd's scatter (index_put_ "
+        f"accumulate) {sms * 1e3:.1f} us")
+    return dict(ms=ms_, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                library_ms=lms)
 
 
 def enc_inputs(cdt, device, B, M0, cfg, seed=0):
@@ -1809,11 +1901,12 @@ def probes_phase(decode_us):
         bound_by=bby, library_ms=sum(t[k]["library_ms"] for k in cases))
     bms, bby = bound(*compose_work(sh["N"], sh["hop"], sh["d"], sh["E"]),
                      PEAK_F32)
+    comp = t["composition"]
     out["probe_compose"] = dict(
         launches=rec["launches"]["probe_compose"],
         max_abs_err=rec["checks"]["composition"]["max_abs_err"],
-        ms=t["composition"]["ms"], plain_ms=t["composition"]["plain_ms"],
-        bound_ms=bms, bound_by=bby, library_ms=None)
+        ms=comp["ms"], plain_ms=comp["plain_ms"],
+        bound_ms=bms, bound_by=bby, library_ms=comp["library_ms"])
     g_ms = sum(t[k]["graph_ms"] for k in cases)
     g_lib = sum(t[k]["library_graph_ms"] for k in cases)
     say("probes", t0, f"reshape: 5 layouts exact; flat copy "
@@ -1823,8 +1916,12 @@ def probes_phase(decode_us):
         f"{1e3 * g_ms / len(cases):.3f} us a layout; launches "
         f"{out['probe_reshape']['launches']} (the graph capture counts "
         f"once per captured call, its replays not at all); composition "
-        f"{1e3 * t['composition']['ms']:.2f} us (plain "
-        f"{1e3 * t['composition']['plain_ms']:.2f})")
+        f"{1e3 * comp['ms']:.2f} us a call, {1e3 * comp['graph_ms']:.3f} us "
+        f"by graph replay (bound {1e3 * bms:.3f} us, {bby}: "
+        f"{100 * bms / comp['graph_ms']:.1f}% of the card's time; plain "
+        f"{1e3 * comp['plain_ms']:.2f} us; einsum "
+        f"{1e3 * comp['library_ms']:.2f} us a call, "
+        f"{1e3 * comp['library_graph_ms']:.3f} us by graph replay)")
 
     t0 = time.monotonic()
     rec, _ = run_probe("decode_int8_micro", "--decode-us", repr(decode_us))
@@ -1880,7 +1977,8 @@ def main():
                "vqvae_vq": "vq.cu",
                "vqvae_encoder": "encoder.cu",
                "vqvae_upsample": "upsample.cu",
-               "vqvae_decode_chain": "decode_chain.cu"}
+               "vqvae_decode_chain": "decode_chain.cu",
+               "vqvae_embed": "embed.cu"}
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         # one nvcc per source, all started together
         for f in [pool.submit(build.build, k, [v])
@@ -1929,7 +2027,8 @@ def main():
     timing.update(train_time_vctk_phase(device, errs))
     # each kernel's launches come from the run of the path that uses it
     counts.update({k: vctk_counts[k] for k in ("chunk_bwd_rec",
-                                                 "vq_argmin")})
+                                                 "vq_argmin",
+                                                 "take_rows_bwd")})
     counts["chunk_bwd_win"] = win_counts["chunk_bwd_win"]
     timing.update(enc_kernel_phase(device, errs))
     codec_counts = cli_codec_phase(device)
@@ -1952,12 +2051,14 @@ def main():
             ("encoder_fwd", "encoder.cu",
              "vqvae_tpu/kernels/encoder_pallas.py:204"),
             ("encoder_bwd", "encoder.cu",
-             "vqvae_tpu/kernels/encoder_pallas.py:240")):
+             "vqvae_tpu/kernels/encoder_pallas.py:240"),
+            # an XLA backward (take_rows's _bwd), not a Pallas kernel
+            ("take_rows_bwd", "embed.cu", "vqvae_tpu/ops/embed.py:32")):
         kernels.append({"name": name, "route": "cuda",
                         "source": f"vqvae_tpu_torch/csrc/{src}",
                         "replaces": replaces, "launches": counts[name],
-                        "max_abs_err": errs[name], **timing[name],
-                        "library_ms": None})
+                        "max_abs_err": errs[name], "library_ms": None,
+                        **timing[name]})
     probe = probes_phase(1e3 * ms / T_req)
     for name, src, replaces in (
             ("cond_fwd", "upsample.cu", "scripts/cond_inkernel_probe.py:91"),

@@ -952,3 +952,178 @@ def test_relayout_and_chain_capture_in_a_cuda_graph(cuda):
     torch.cuda.synchronize()
     for a, b in zip(out, eager):
         assert torch.equal(a, b)
+
+
+# ---- the composition (upsample.cu::compose) --------------------------------
+
+
+@pytest.mark.parametrize("E", [32, 128])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("hop", [1, 63, 64])
+@pytest.mark.parametrize("N", [1, 7])
+def test_compose_kernel_ragged_shapes_vs_plain(cuda, N, hop, d, E):
+    """Runs of latent rows cut short, every hop row a block: within 1e-4
+    of max of the plain version; each call one launch."""
+    g = torch.Generator().manual_seed(N * 1000 + hop * 10 + d + E)
+    x = torch.randn(N, d, generator=g).to(cuda)
+    w = (torch.randn(d, hop * d, generator=g) * 0.1).to(cuda)
+    v = (torch.randn(d, E, generator=g) * 0.1).to(cuda)
+    before = uc.launches["probe_compose"]
+    got = uc.compose_kernel(x, w, v, hop)
+    assert uc.launches["probe_compose"] == before + 1
+    want = uc.compose_plain(x, w, v, hop)
+    assert got.shape == want.shape == (N * hop, E)
+    assert _rel_err(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("N,hop,d,E,off", [(33, 5, 30, 30, 0),
+                                           (20, 3, 64, 128, 1),
+                                           (17, 2, 7, 129, 0)])
+def test_compose_kernel_odd_widths_and_offsets(cuda, N, hop, d, E, off):
+    """Widths that are not multiples of 4, or an x 4 bytes off a 16-byte
+    boundary, take the value-by-value stage: within 1e-4 of max."""
+    g = torch.Generator().manual_seed(N + d + E)
+    x = torch.randn(N * d + off, generator=g).to(cuda)[off:].view(N, d)
+    w = (torch.randn(d, hop * d, generator=g) * 0.1).to(cuda)
+    v = (torch.randn(d, E, generator=g) * 0.1).to(cuda)
+    got = uc.compose_kernel(x, w, v, hop)
+    assert _rel_err(got, uc.compose_plain(x, w, v, hop)) <= 1e-4
+
+
+def test_compose_kernel_repeats_and_mirrors_its_stage_size(cuda):
+    """Two calls give the same bits; ``compose_smem`` is the library's
+    own size; a stage past shared memory raises."""
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(32, 64, generator=g).to(cuda)
+    w = (torch.randn(64, 64 * 64, generator=g) * 0.1).to(cuda)
+    v = (torch.randn(64, 128, generator=g) * 0.1).to(cuda)
+    assert torch.equal(uc.compose_kernel(x, w, v, 64),
+                       uc.compose_kernel(x, w, v, 64))
+    lib = uc._library()
+    for d, E in ((64, 128), (30, 30), (7, 129), (128, 256)):
+        assert lib.vqvae_compose_smem(d, E) == uc.compose_smem(d, E)
+    with pytest.raises(ValueError, match="shared memory"):
+        uc.compose_kernel(torch.zeros(2, 128, device=cuda),
+                          torch.zeros(128, 128, device=cuda),
+                          torch.zeros(128, 512, device=cuda), 1)
+
+
+# ---- the embedding gather's backward (csrc/embed.cu) -----------------------
+
+from vqvae_tpu_torch.kernels import embed_cuda as ebc        # noqa: E402
+
+
+def _take_rows_inputs(cuda, cdt, idt, shape, V, C, seed=0, ids=None):
+    g = torch.Generator().manual_seed(seed)
+    if ids is None:
+        ids = torch.randint(0, V, shape, generator=g)
+    cot = torch.randn(*shape, C, generator=g)
+    return ids.to(cuda, idt), cot.to(cuda, cdt)
+
+
+@pytest.mark.parametrize("idt", [torch.int32, torch.int64])
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,V,C", [((16, 7680), 256, 64),
+                                       ((3, 5), 16, 8),
+                                       ((2, 1000), 100, 48)])
+def test_take_rows_kernel_vs_plain_repeat_bits(cuda, shape, V, C, cdt, idt):
+    """vctk-multi's shape and small ones: within 1e-4 / 3e-2 of max of the
+    plain version; a second call gives the same bits; one launch a
+    call."""
+    ids, g = _take_rows_inputs(cuda, cdt, idt, shape, V, C, seed=V + C)
+    before = ebc.launches["take_rows_bwd"]
+    got = ebc.take_rows_bwd_kernel(ids, g, V, cdt)
+    assert ebc.launches["take_rows_bwd"] == before + 1
+    want = ebc.take_rows_bwd_plain(ids, g, V, cdt)
+    assert got.shape == want.shape and got.dtype == cdt
+    assert _rel_err(got, want) <= TRAIN_TOL[cdt]
+    assert torch.equal(ebc.take_rows_bwd_kernel(ids, g, V, cdt), got)
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_take_rows_kernel_skewed_and_out_of_range_ids(cuda, cdt):
+    """Every id the same (the scatter's worst case), and ids outside
+    [0, V) that add nothing: the other rows stay exactly zero."""
+    B, T, V, C = 16, 7680, 256, 64
+    same = torch.full((B, T), 37, dtype=torch.int64)
+    ids, g = _take_rows_inputs(cuda, cdt, torch.int32, (B, T), V, C, ids=same)
+    got = ebc.take_rows_bwd_kernel(ids, g, V, cdt)
+    want = ebc.take_rows_bwd_plain(ids, g, V, cdt)
+    assert _rel_err(got, want) <= TRAIN_TOL[cdt]
+    assert not torch.cat([got[:37], got[38:]]).any()
+    assert torch.equal(ebc.take_rows_bwd_kernel(ids, g, V, cdt), got)
+    gen = torch.Generator().manual_seed(3)
+    raw = torch.randint(0, V, (4, 999), generator=gen)
+    raw[0, ::7] = -1
+    raw[1, ::5] = V
+    raw[2, ::3] = 2 ** 40
+    raw[raw == 11] = 12   # row 11 only through out-of-range ids: none
+    ids, g = _take_rows_inputs(cuda, cdt, torch.int64, (4, 999), V, C,
+                               ids=raw)
+    got = ebc.take_rows_bwd_kernel(ids, g, V, cdt)
+    assert _rel_err(got, ebc.take_rows_bwd_plain(ids, g, V, cdt)) <= \
+        TRAIN_TOL[cdt]
+    assert not got[11].any()
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_take_rows_kernel_odd_widths_and_offsets(cuda, cdt):
+    """A width whose rows are not 16-byte pieces, a g 2 or 4 bytes off a
+    16-byte boundary and a large table take the value-by-value stage or
+    shorter chunks: within tolerance, the same bits twice; the library's
+    shared-memory size is ``kernel_smem``'s."""
+    gen = torch.Generator().manual_seed(4)
+    for V, C, off in ((50, 7, 0), (256, 64, 1), (3000, 16, 0)):
+        M = 4097
+        ids = torch.randint(0, V, (M,), generator=gen).to(cuda, torch.int32)
+        base = torch.randn(M * C + off, generator=gen).to(cuda, cdt)
+        g = base[off:].view(M, C)
+        got = ebc.take_rows_bwd_kernel(ids, g, V, cdt)
+        assert _rel_err(got, ebc.take_rows_bwd_plain(ids, g, V, cdt)) <= \
+            TRAIN_TOL[cdt]
+        assert torch.equal(ebc.take_rows_bwd_kernel(ids, g, V, cdt), got)
+    import ctypes
+    from vqvae_tpu_torch.kernels.build import build
+    lib = ctypes.CDLL(str(build("vqvae_embed", ["embed.cu"])))
+    lib.vqvae_take_rows_smem.argtypes = [ctypes.c_int] * 4
+    lib.vqvae_take_rows_smem.restype = ctypes.c_longlong
+    for V, C, es, isz in ((256, 64, 2, 4), (256, 64, 4, 8), (50, 7, 2, 4),
+                          (3000, 16, 4, 4), (1000, 64, 4, 8)):
+        assert lib.vqvae_take_rows_smem(V, C, es, isz) == \
+            ebc.kernel_smem(V, C, es, isz)
+    with pytest.raises(ValueError, match="shared memory"):
+        ebc.take_rows_bwd_kernel(ids, g, 100000, cdt)
+
+
+def test_embed_inputs_backward_runs_the_kernel_not_the_scatter(cuda):
+    """vctk-multi's input layer on the card: two kernel calls in its
+    backward, within 3e-2 of the plain backward, and no
+    indexing_backward_kernel in the profile."""
+    from torch.autograd import DeviceType
+    from vqvae_tpu_torch.models.wavenet import embed_inputs
+    cfg = get_config("vctk-multi").model
+    gen = torch.Generator().manual_seed(6)
+    w = torch.randn(2, cfg.mu, cfg.residual_channels, generator=gen).to(cuda)
+    b = torch.zeros(cfg.residual_channels, device=cuda)
+    ids = torch.randint(0, cfg.mu, (16, 7680), generator=gen).to(
+        cuda, torch.int32)
+    cot = torch.randn(16, 7680, cfg.residual_channels, generator=gen).to(
+        cuda, cfg.cdtype)
+    w.requires_grad_(True)
+    embed_inputs({"emb": {"w": w, "b": b}}, cfg, ids).backward(cot)
+    torch.cuda.synchronize()
+    w.grad = None
+    before = ebc.launches["take_rows_bwd"]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        embed_inputs({"emb": {"w": w, "b": b}}, cfg, ids).backward(cot)
+        torch.cuda.synchronize()
+    assert ebc.launches["take_rows_bwd"] == before + 2
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert any("take_rows_parts" in n for n in names), names
+    assert not any("indexing_backward" in n for n in names), names
+    c1 = ebc.take_rows_bwd_plain(ids, cot, cfg.mu, cfg.cdtype).float()
+    c0 = ebc.take_rows_bwd_plain(ids[:, :-1], cot[:, 1:], cfg.mu,
+                                 cfg.cdtype).float()
+    assert _rel_err(w.grad[1], c1) <= 3e-2 and _rel_err(w.grad[0], c0) <= 3e-2

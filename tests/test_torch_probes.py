@@ -230,6 +230,47 @@ def test_composition_matches_jax():
     assert tuple(got.shape) == want.shape and _rel(got, want) <= 1e-5
 
 
+def _comp_body():
+    """The script's ``comp`` Pallas body, from the source of its ``main``
+    (never imported: it would run the probe), with the script's N, hop
+    and d."""
+    path = os.path.join(SCRIPTS, "mosaic_reshape_probe.py")
+    tree = ast.parse(open(path).read())
+    main = next(n for n in tree.body
+                if isinstance(n, ast.FunctionDef) and n.name == "main")
+    node = next(n for n in main.body
+                if isinstance(n, ast.FunctionDef) and n.name == "comp")
+    ns = {"jnp": jnp, "N": N, "hop": HOP, "d": D}
+    exec(compile(ast.Module([node], []), path, "exec"), ns)
+    return ns["comp"]
+
+
+def test_composition_plain_matches_pallas_body():
+    """The script's ``comp`` body run by ``pl.pallas_call(...,
+    interpret=True)`` on its own data (numpy seed 1) against
+    ``compose_plain``, within 1e-5 of max."""
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((N, D)).astype(np.float32)
+    w = (rng.standard_normal((D, HOP * D)) * 0.1).astype(np.float32)
+    v = (rng.standard_normal((D, 128)) * 0.1).astype(np.float32)
+    want = pl.pallas_call(
+        _comp_body(),
+        out_shape=jax.ShapeDtypeStruct((N * HOP, 128), jnp.float32),
+        interpret=True)(jnp.asarray(x), jnp.asarray(w), jnp.asarray(v))
+    got = uc.compose_plain(_t(x), _t(w), _t(v), HOP)
+    assert tuple(got.shape) == want.shape and _rel(got, want) <= 1e-5
+    assert np.abs(np.asarray(want)).max() > 0
+
+
+def test_compose_kernel_refuses_a_stage_past_shared_memory():
+    """The kernel stages w's [d, d] slice and v [d, E]: past 227 KB a
+    block the wrapper raises before any launch (no fallback)."""
+    assert uc.compose_smem(64, 128) == 57344
+    with pytest.raises(ValueError, match="shared memory"):
+        uc.compose_kernel(torch.zeros(2, 128), torch.zeros(128, 128),
+                          torch.zeros(128, 512), 1)
+
+
 # ---- the decode chain: scripts/decode_int8_micro.py ------------------------
 
 

@@ -200,6 +200,7 @@ def launch_counts() -> dict:
     """Kernel launches in this process, by kernel."""
     from vqvae_tpu_torch.kernels import (
         decode_cuda,
+        embed_cuda,
         encoder_cuda,
         head_ce_cuda,
         vq_cuda,
@@ -214,7 +215,8 @@ def launch_counts() -> dict:
             "chunk_bwd_win": wt.launches_bwd_win,
             "head_ce_fwd": head_ce_cuda.launches_fwd,
             "head_ce_bwd": head_ce_cuda.launches_bwd,
-            "vq_argmin": vq_cuda.launches}
+            "vq_argmin": vq_cuda.launches,
+            "take_rows_bwd": embed_cuda.launches["take_rows_bwd"]}
 
 
 def print_launch_counts() -> None:

@@ -84,6 +84,18 @@
 // 8 values a thread by 16-byte loads and stores.  The reshape probe's
 // layouts are flat_copy, its matmul -> untile -> matmul composition is
 // compose, whose [N, hop*d] intermediate stays in shared memory.
+//
+// The reshape probe's composition (compose; N = 32, hop = 64, d = 64,
+// E = 128 in the probe) does 50.3 MFLOP of float32 against 2.1 MB (0.75
+// us at 67 TFLOP/s, 0.64 us at 3.35 TB/s): operations bind, and in
+// practice the launch and one round trip to device memory.  A block owns
+// one row r of the hop and a run of 16 latent rows (128 blocks at the
+// probe's shape); it stages w's [d, d] slice for r, its rows of x and v
+// once (56 KB at the probe's shape), so w is read from device memory once
+// per run of rows and nothing inside a product's loop reads global
+// memory; both products are register tiles read as float4 from shared
+// memory.  TF32 stays off: the plain version's 1e-4 of max is below its
+// rounding.
 #include <initializer_list>
 
 #include "train_common.cuh"
@@ -472,33 +484,145 @@ int run_flat_copy(long long n, const float* x, float* y, cudaStream_t st) {
 
 // out[n*hop + r, j] = sum_c (sum_i x[n, i] w[i, r*d + c]) v[c, j]: the
 // tap product, the untile [N, hop*d] -> [N*hop, d] and the row product in
-// one kernel.  A block owns CRW rows r of latent row n = blockIdx.y: it
-// keeps x[n] and its [CRW, d] slice of the intermediate in shared memory,
-// never in device memory.  Float32, each sum in k order.
-constexpr int CRW = 16;   // compose: rows r per block
+// one kernel (the reshape probe's composition; see the header).  Block (r, run of CP_NB latent rows) stages its slice
+// w[:, r*d : (r+1)*d], its rows of x and all of v once (cp.async 16-byte
+// pieces; value by value for a width that is not a multiple of 4 or an
+// unaligned operand, padded with zeros to a multiple of 4), keeps the
+// [CP_NB, d] intermediate in shared memory, and computes both products as
+// float32 FMAs in k order from float4 reads of shared memory: the first
+// 2 x 4 outputs a thread, the second 4 x 4.  16-byte stores where E % 4
+// == 0.
+constexpr int CP_NB = 16;   // latent rows n a block
+constexpr int CP_T1 = 2;    // rows a thread in the first product
+constexpr int CP_T2 = 4;    // rows a thread in the second product
 
-__global__ void compose(int hop, int d, int E, const float* __restrict__ x,
-                        const float* __restrict__ w,
-                        const float* __restrict__ v, float* __restrict__ out) {
-  float* xs = smem;            // [d]
-  float* as = smem + d;        // [CRW][d]
-  const int r0 = blockIdx.x * CRW, n = blockIdx.y, tid = threadIdx.x;
-  const int rows = min(CRW, hop - r0);
-  for (int i = tid; i < d; i += NT) xs[i] = x[(size_t)n * d + i];
-  __syncthreads();
-  for (int j = tid; j < rows * d; j += NT) {
-    const int r = j / d, c = j % d;
-    const float* wc = w + (size_t)(r0 + r) * d + c;
-    float a = 0.f;
-    for (int i = 0; i < d; ++i) a = fmaf(xs[i], wc[(size_t)i * hop * d], a);
-    as[j] = a;
+struct ComposeShape {
+  int N, hop, d, E;
+  int dp, ep;   // d and E rounded up to 4 (the staged rows' widths)
+  static ComposeShape of(int N, int hop, int d, int E) {
+    return {N, hop, d, E, (d + 3) / 4 * 4, (E + 3) / 4 * 4};
+  }
+  // ws [d][dp], vs [d][ep], xs and as [CP_NB][dp], float32
+  size_t bytes() const {
+    return 4 * ((size_t)d * dp + (size_t)d * ep + 2 * (size_t)CP_NB * dp);
+  }
+};
+
+template <bool VEC>
+__global__ void __launch_bounds__(NT)
+compose(ComposeShape s, const float* __restrict__ x,
+        const float* __restrict__ w, const float* __restrict__ v,
+        float* __restrict__ out) {
+  float* ws = smem;
+  float* vs = ws + s.d * s.dp;
+  float* xs = vs + s.d * s.ep;
+  float* as = xs + CP_NB * s.dp;
+  const int r = blockIdx.x, n0 = blockIdx.y * CP_NB, tid = threadIdx.x;
+  const int nb = min(CP_NB, s.N - n0);
+  const float* wr = w + (size_t)r * s.d;   // row i at wr + i*hop*d
+  const size_t wld = (size_t)s.hop * s.d;
+  if constexpr (VEC) {   // d % 4 == 0, E % 4 == 0: dp == d, ep == E
+    // two groups: w's slice and x for the first product, then v, which
+    // lands while the first product runs
+    const int rp = s.d / 4, vp = s.E / 4;
+    for (int q = tid; q < s.d * rp; q += NT) {
+      const int i = q / rp, c = q - i * rp;
+      async_copy16(ws + i * s.dp + 4 * c, wr + i * wld + 4 * c, true);
+    }
+    for (int q = tid; q < CP_NB * rp; q += NT) {
+      const int i = q / rp, c = q - i * rp;
+      async_copy16(xs + i * s.dp + 4 * c, x + (size_t)(n0 + i) * s.d + 4 * c,
+                   i < nb);
+    }
+    async_commit();
+    for (int q = tid; q < s.d * vp; q += NT)
+      async_copy16(vs + 4 * q, v + 4 * (size_t)q, true);
+    async_commit();
+    async_wait<1>();
+  } else {
+    for (int q = tid; q < s.d * s.dp; q += NT) {
+      const int i = q / s.dp, c = q - i * s.dp;
+      ws[q] = c < s.d ? wr[i * wld + c] : 0.f;
+    }
+    for (int q = tid; q < s.d * s.ep; q += NT) {
+      const int i = q / s.ep, c = q - i * s.ep;
+      vs[q] = c < s.E ? v[(size_t)i * s.E + c] : 0.f;
+    }
+    for (int q = tid; q < CP_NB * s.dp; q += NT) {
+      const int i = q / s.dp, c = q - i * s.dp;
+      xs[q] = (i < nb && c < s.d) ? x[(size_t)(n0 + i) * s.d + c] : 0.f;
+    }
   }
   __syncthreads();
-  for (int j = tid; j < rows * E; j += NT) {
-    const int r = j / E, c = j % E;
-    float o = 0.f;
-    for (int k = 0; k < d; ++k) o = fmaf(as[r * d + k], v[(size_t)k * E + c], o);
-    out[((size_t)n * hop + r0 + r) * E + c] = o;
+  // a[n, c] = sum_i x[n, i] w[i, c]: CP_T1 rows x 4 columns a thread
+  const int g1 = s.dp / 4;
+  for (int t = tid; t < (CP_NB / CP_T1) * g1; t += NT) {
+    const int n = (t / g1) * CP_T1, c4 = 4 * (t % g1);
+    float acc[CP_T1][4] = {};
+    for (int i = 0; i < s.dp; i += 4) {
+      float4 xa[CP_T1];
+#pragma unroll
+      for (int a = 0; a < CP_T1; ++a)
+        xa[a] = *reinterpret_cast<const float4*>(xs + (n + a) * s.dp + i);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float4 wb =
+            *reinterpret_cast<const float4*>(ws + (i + k) * s.dp + c4);
+#pragma unroll
+        for (int a = 0; a < CP_T1; ++a) {
+          const float xk = at(xa[a], k);
+          acc[a][0] = fmaf(xk, wb.x, acc[a][0]);
+          acc[a][1] = fmaf(xk, wb.y, acc[a][1]);
+          acc[a][2] = fmaf(xk, wb.z, acc[a][2]);
+          acc[a][3] = fmaf(xk, wb.w, acc[a][3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < CP_T1; ++a)
+      *reinterpret_cast<float4*>(as + (n + a) * s.dp + c4) =
+          make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+  }
+  if constexpr (VEC) async_wait<0>();   // v
+  __syncthreads();
+  // out[n*hop + r, j] = sum_c a[n, c] v[c, j]: CP_T2 rows x 4 columns a
+  // thread; a warp's 32 threads take 32 neighbouring column groups
+  const int g2 = s.ep / 4;
+  for (int t = tid; t < (CP_NB / CP_T2) * g2; t += NT) {
+    const int n = (t / g2) * CP_T2, j4 = 4 * (t % g2);
+    float acc[CP_T2][4] = {};
+    for (int c = 0; c < s.dp; c += 4) {
+      float4 aa[CP_T2];
+#pragma unroll
+      for (int a = 0; a < CP_T2; ++a)
+        aa[a] = *reinterpret_cast<const float4*>(as + (n + a) * s.dp + c);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float4 vb =
+            *reinterpret_cast<const float4*>(vs + (c + k) * s.ep + j4);
+#pragma unroll
+        for (int a = 0; a < CP_T2; ++a) {
+          const float ak = at(aa[a], k);
+          acc[a][0] = fmaf(ak, vb.x, acc[a][0]);
+          acc[a][1] = fmaf(ak, vb.y, acc[a][1]);
+          acc[a][2] = fmaf(ak, vb.z, acc[a][2]);
+          acc[a][3] = fmaf(ak, vb.w, acc[a][3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < CP_T2; ++a) {
+      if (n + a >= nb) break;
+      float* o = out + ((size_t)(n0 + n + a) * s.hop + r) * s.E + j4;
+      if constexpr (VEC) {
+        *reinterpret_cast<float4*>(o) =
+            make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (j4 + e < s.E) o[e] = acc[a][e];
+      }
+    }
   }
 }
 
@@ -1595,16 +1719,46 @@ int vqvae_relayout(long long n, const float* x, float* y, void* stream) {
                          : run_flat_copy<long long>(n, x, y, st);
 }
 
+// Bytes of shared memory a block of vqvae_compose needs (its stage;
+// upsample_cuda.compose_smem mirrors it).
+long long vqvae_compose_smem(int d, int E) {
+  return (long long)ComposeShape::of(1, 1, d, E).bytes();
+}
+
 // out [N*hop, E] = ((x [N, d] @ w [d, hop*d]).reshape(N*hop, d)) @ v [d, E],
-// float32, in one kernel
+// float32, in one kernel.  -2: sizes whose stage does not fit in shared
+// memory.
 int vqvae_compose(int N, int hop, int d, int E, const float* x,
                   const float* w, const float* v, float* out, void* stream) {
-  if (N < 1 || hop < 1 || d < 1 || E < 1) return -2;
-  const size_t sm = (size_t)(d + CRW * d) * sizeof(float);
-  if (sm > 227 * 1024) return -2;
-  VQT_TRY(smem_opt_in(compose, sm));
-  KLAUNCH(compose, dim3(cdiv(hop, CRW), N), NT, sm, (cudaStream_t)stream,
-          hop, d, E, x, w, v, out);
+  if (N < 1 || hop < 1 || d < 1 || E < 1 || cdiv(N, CP_NB) > 65535)
+    return -2;
+  const ComposeShape s = ComposeShape::of(N, hop, d, E);
+  const size_t sm = s.bytes();
+  if (sm > 232448) return -2;
+  const bool vec = d % 4 == 0 && E % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(x) |
+                     reinterpret_cast<uintptr_t>(w) |
+                     reinterpret_cast<uintptr_t>(v) |
+                     reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  const dim3 grid(hop, cdiv(N, CP_NB));
+  cudaStream_t st = (cudaStream_t)stream;
+  // the opt-in above 48 KB, once a size and instance
+  static size_t opted[2] = {0, 0};
+  if (vec) {
+    auto k = compose<true>;
+    if (sm > opted[1]) {
+      VQT_TRY(smem_opt_in(k, sm));
+      opted[1] = sm;
+    }
+    KLAUNCH(k, grid, NT, sm, st, s, x, w, v, out);
+  } else {
+    auto k = compose<false>;
+    if (sm > opted[0]) {
+      VQT_TRY(smem_opt_in(k, sm));
+      opted[0] = sm;
+    }
+    KLAUNCH(k, grid, NT, sm, st, s, x, w, v, out);
+  }
   return (int)last_error();
 }
 

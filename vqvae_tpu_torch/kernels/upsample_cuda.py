@@ -259,6 +259,8 @@ def _library():
             fn.restype = i
         lib.vqvae_cond_bwd_scratch.argtypes = [i] * 4
         lib.vqvae_cond_bwd_scratch.restype = ll
+        lib.vqvae_compose_smem.argtypes = [i, i]
+        lib.vqvae_compose_smem.restype = ll
         _lib = lib
     return _lib
 
@@ -598,18 +600,45 @@ def compose_plain(x, w, v, hop: int) -> torch.Tensor:
     return (x.float() @ w.float()).reshape(N * hop, d) @ v.float()
 
 
+COMPOSE_ROWS = 16   # latent rows a block of the composition kernel
+
+
+def compose_smem(d: int, E: int) -> int:
+    """Bytes of shared memory a block of the composition kernel stages
+    (``csrc/upsample.cu``, ``ComposeShape::bytes``): w's ``[d, d]`` slice
+    and v ``[d, E]``, with x's and the intermediate's ``[16, d]``, every
+    row's width rounded up to 4 floats."""
+    dp, ep = -(-d // 4) * 4, -(-E // 4) * 4
+    return 4 * (d * dp + d * ep + 2 * COMPOSE_ROWS * dp)
+
+
 def compose_kernel(x, w, v, hop: int) -> torch.Tensor:
-    """The same in one kernel; the ``[N, hop·d]`` intermediate stays in
-    shared memory."""
+    """The same in one kernel: a block stages one row r of the hop (w's
+    ``[d, d]`` slice), 16 rows of x and v once and keeps the ``[16, d]``
+    intermediate in shared memory.  Float32 CUDA tensors; raises for
+    sizes whose stage does not fit in shared memory.  The host path is
+    kept to these checks and one ctypes call."""
     N, d = x.shape
     E = v.shape[1]
-    _check(torch.float32, x, w, v)
-    if tuple(w.shape) != (d, hop * d) or v.shape[0] != d:
+    f32 = torch.float32
+    if x.dtype != f32 or w.dtype != f32 or v.dtype != f32:
+        raise TypeError("the composition kernel takes float32")
+    if w.shape != (d, hop * d) or v.shape[0] != d:
         raise ValueError(f"w must be [{d}, {hop * d}] and v [{d}, E]")
-    x, w, v = (t.float().contiguous() for t in (x, w, v))
-    out = torch.empty(N * hop, E, dtype=torch.float32, device=x.device)
+    sm = compose_smem(d, E)
+    if sm > 232448:
+        raise ValueError(f"the composition kernel stages w's [d, d] slice "
+                         f"and v [d, E] in shared memory: d={d}, E={E} "
+                         f"need {sm} bytes a block, the limit is 232448")
+    dev = x.device
+    if not x.is_cuda or w.device != dev or v.device != dev:
+        raise ValueError(f"compose_kernel takes CUDA tensors on one device, "
+                         f"got {x.device}, {w.device}, {v.device}")
+    x, w, v = x.contiguous(), w.contiguous(), v.contiguous()
+    out = torch.empty(N * hop, E, dtype=f32, device=dev)
     _call("vqvae_compose", "probe_compose", N, hop, d, E, x.data_ptr(),
-          w.data_ptr(), v.data_ptr(), out.data_ptr(), _stream(x))
+          w.data_ptr(), v.data_ptr(), out.data_ptr(),
+          torch._C._cuda_getCurrentRawStream(dev.index))
     return out
 
 

@@ -36,6 +36,7 @@ from vqvae_tpu_torch.ops.conv import (
     upsample_apply,
     upsample_init,
 )
+from vqvae_tpu_torch.ops.embed import take_rows
 
 
 def _normal(shape, fan_in, dtype, generator, device):
@@ -99,10 +100,11 @@ def global_cond(params, cfg: ModelConfig, speaker: torch.Tensor
 
 def embed_inputs(params, cfg: ModelConfig, ids: torch.Tensor
                  ) -> torch.Tensor:
-    """Causal kernel-2 conv over the implicit one-hot, as two gathers:
+    """Causal kernel-2 conv over the implicit one-hot, as two gathers
+    whose backward is a fixed-order per-id sum (``ops/embed.py``):
     ``[B, T] -> [B, T, R]``."""
     w = params["emb"]["w"].to(cfg.cdtype)
-    h = w[1][ids] + shift_right(w[0][ids], 1)
+    h = take_rows(w[1], ids) + shift_right(take_rows(w[0], ids), 1)
     return h + params["emb"]["b"].to(cfg.cdtype)
 
 

@@ -61,6 +61,24 @@ def shift_right(x: torch.Tensor, n: int) -> torch.Tensor:
     return torch.nn.functional.pad(x, (0, 0, n, 0))[:, :x.shape[1], :]
 
 
+def causal_conv_apply(params, x: torch.Tensor, dilation: int = 1,
+                      dtype=None) -> torch.Tensor:
+    """Causal dilated 1-D conv ``[B, T, C_in] -> [B, T, C_out]``: output
+    t reads inputs t, t-d, ..., t-(k-1)d, the left context zero-padded;
+    as in the JAX package, one dense product a tap over the shifted
+    input, the taps added in the JAX package's order, then the bias."""
+    w = params["w"]
+    dtype = dtype or x.dtype
+    x = x.to(dtype)
+    k = w.shape[0]
+    y = matmul(x, w[k - 1], dtype)
+    for j in range(k - 1):
+        y = y + matmul(shift_right(x, (k - 1 - j) * dilation), w[j], dtype)
+    if "b" in params:
+        y = y + params["b"].to(dtype)
+    return y
+
+
 def strided_conv_apply(params, x: torch.Tensor, stride: int,
                        dtype=None) -> torch.Tensor:
     """Strided 'SAME' 1-D conv: ``[B, T, C_in] -> [B, ceil(T/s), C_out]``.

@@ -10,14 +10,16 @@ row-major reshape keeps the flat order, so on the card it is a flat
 ``((x @ w).reshape(N·hop, d)) @ v`` runs as one fused kernel whose
 ``[N, hop·d]`` intermediate never reaches device memory, within 1e-4 of
 max of the two plain products.  Then each is timed (CUDA events) beside
-its plain version and, for the reshapes, one ``clone`` of the reshaped
-view (none exists for the composition, which needs two calls): per call
-(``ms``, ``library_ms``: 50 calls between two events, the host's enqueue
-included) and, for the reshapes, by CUDA-graph replay (``graph_ms``,
-``library_graph_ms``: the same 50 calls captured once and replayed, the
-card's time alone).  ``launches`` counts the kernel's calls in the timed
-run; the graph capture counts once per captured call, its replays not at
-all.  The last line is one JSON object.
+its plain version and one library call of the same function: for the
+reshapes a ``clone`` of the reshaped view, for the composition
+``torch.einsum("ni,irc,cj->nrj", x, w.view(d, hop, d), v)`` reshaped to
+``[N·hop, E]`` (TF32 off); per call (``ms``, ``library_ms``: 50 calls
+between two events, the host's enqueue included) and by CUDA-graph
+replay (``graph_ms``, ``library_graph_ms``: the same 50 calls captured
+once and replayed, the card's time alone).  ``launches`` counts the
+kernel's calls in the timed run; the graph capture counts once per
+captured call, its replays not at all.  The last line is one JSON
+object.
 """
 
 from __future__ import annotations
@@ -48,6 +50,15 @@ CASES = [
 ]
 E = 128   # columns of v
 REPS = 50  # timed calls per case
+
+
+def compose_einsum(x, w, v, hop: int):
+    """The composition as one library call (the yardstick; the port
+    never calls it): ``einsum("ni,irc,cj->nrj")`` over ``w [d, hop, d]``,
+    reshaped to ``[N·hop, E]``."""
+    N, d = x.shape
+    return torch.einsum("ni,irc,cj->nrj", x, w.view(d, hop, d), v).reshape(
+        N * hop, v.shape[1])
 
 
 def main(argv=None) -> None:
@@ -83,8 +94,10 @@ def main(argv=None) -> None:
                                      REPS),
                        "graph_ms": graph_ms(lambda: uc.relayout(xx, dst),
                                             dev, REPS)}
-        t["composition"] = {"ms": cuda_ms(lambda: uc.compose(x, w, v, HOP),
-                                          dev, REPS)}
+        t["composition"] = {
+            "ms": cuda_ms(lambda: uc.compose(x, w, v, HOP), dev, REPS),
+            "graph_ms": graph_ms(lambda: uc.compose(x, w, v, HOP), dev,
+                                 REPS)}
         record["launches"] = dict(uc.launches)
         for (name, _, dst), xx in zip(CASES, xs):
             # the plain version is a reshape and a clone: the library call
@@ -92,15 +105,23 @@ def main(argv=None) -> None:
                 lambda: uc.relayout_plain(xx, dst), dev, REPS)
             t[name]["library_graph_ms"] = graph_ms(
                 lambda: uc.relayout_plain(xx, dst), dev, REPS)
+        checks.close("composition einsum",
+                     compose_einsum(x, w, v, HOP),
+                     uc.compose_plain(x, w, v, HOP), 1e-4)
         t["composition"].update(
             plain_ms=cuda_ms(lambda: uc.compose_plain(x, w, v, HOP), dev,
-                             REPS), library_ms=None)
+                             REPS),
+            library_ms=cuda_ms(lambda: compose_einsum(x, w, v, HOP), dev,
+                               REPS),
+            library_graph_ms=graph_ms(lambda: compose_einsum(x, w, v, HOP),
+                                      dev, REPS))
         for name, r in t.items():
+            lib = "einsum" if name == "composition" else "clone"
             print(f"{name}: kernel {1e3 * r['ms']:.2f} us, plain "
-                  f"{1e3 * r['plain_ms']:.2f} us a call"
-                  + (f"; graph replay: kernel {1e3 * r['graph_ms']:.3f} us,"
-                     f" clone {1e3 * r['library_graph_ms']:.3f} us"
-                     if "graph_ms" in r else ""), flush=True)
+                  f"{1e3 * r['plain_ms']:.2f} us, {lib} "
+                  f"{1e3 * r['library_ms']:.2f} us a call; graph replay: "
+                  f"kernel {1e3 * r['graph_ms']:.3f} us, {lib} "
+                  f"{1e3 * r['library_graph_ms']:.3f} us", flush=True)
     finish(record, checks)
 
 
