@@ -11,7 +11,8 @@ nonzero:
 1. device  — the card's name and power limit (nvidia-smi); CUDA must be
              available; TF32 off for the plain references.
 2. build   — compile the port's eight CUDA sources
-             (``vqvae_tpu_torch/csrc/*.cu``), one nvcc each, side by side.
+             (``vqvae_tpu_torch/csrc/*.cu``), one nvcc each, side by side,
+             and the native audio library (``native/audio.cpp``, g++).
 3. kernel  — the decode kernel (one 16-block cluster per row) against
              its plain PyTorch version at
              vctk-multi width (seeded random weights), B in {1, 3},
@@ -29,7 +30,12 @@ nonzero:
              sessions (equal to one-shot decode, greedy and sampled), a
              pcm-mode session (equal to reconstruct), an out-of-range id
              (refused), stats, shutdown.  The daemon's kernel launch
-             count must rise across the requests.
+             count must rise across the requests.  Then a second daemon
+             on the same weights with ``--engine stream``: decode (greedy,
+             sampled) and reconstruct equal the first daemon's bit for
+             bit, a codes-mode session cut at (37, 1, 100, rest) its own
+             one-shot decode, a pcm-mode session its reconstruct; its
+             launch count must rise; its realtime factors printed.
 6. request — one 1 s decode request as the daemon makes it (B=1, bf16,
              one kernel call over 16000 steps): its kernel time; the kernel
              against the plain version over a tenth of it (1600 steps: the
@@ -84,12 +90,25 @@ nonzero:
              --root <tree> --impl pallas --eval-every 2`` (B=16, T=7680,
              bf16, checkpoint_every=2): 4 steps straight; 2 steps and
              ``--resume`` to 4, whose weights.npz must equal the straight
-             run's at rtol 1e-6; 2 steps with ``--bwd-windows 4``.  Each
-             exits 0 with finite losses and val_ keys in log.jsonl, and
-             its launch counts show the recompute (or windowed) backward,
-             the VQ kernel and the embedding's take_rows backward
-             launched.
-11. train-time-vctk — vctk-multi at its preset B=16, T=7680, bf16 with
+             run's at rtol 1e-6; 2 steps with ``--bwd-windows 4``; 2 steps
+             with ``--loader grain --tensorboard``, whose step 1 and 2
+             losses must equal the straight run's at rtol 1e-6 and whose
+             <out>/tb must hold one event file with log.jsonl's (tag,
+             step, value) triples (read by ``train/metrics.py::
+             read_events``).  Each exits 0 with finite losses and val_
+             keys in log.jsonl, and its launch counts show the recompute
+             (or windowed) backward, the VQ kernel and the embedding's
+             take_rows backward launched.
+11. host-data — on that tree with vctk-multi's data config: every file
+             decodes through the native library (``vqvae_tpu_torch/
+             native``, g++ at first use; ``wav_io.decoders`` counts no
+             scipy load), equal to scipy's decode bit for bit (mono
+             int16); ``GrainBatchLoader(num_workers=2)`` gives
+             BatchLoader's first 8 batches bit for bit, from batch 0 and
+             from batch 5, and ``close()`` leaves no child process; each
+             decoder's ms a file and each loader's ms a batch (host
+             numbers, beside the card's name and power limit).
+12. train-time-vctk — vctk-multi at its preset B=16, T=7680, bf16 with
              the VQ kernel: step time and peak memory with the recompute
              backward, the windowed backward (4 windows), saved gates and
              the plain decoder; the recompute step's busy share and split
@@ -106,7 +125,7 @@ nonzero:
              same bits, timed per call and by graph replay beside its
              bound, the plain version, index_add_ and autograd's scatter;
              and the step with the fused encoder (encoder_kernel=pallas).
-12. enc-kernel — the fused encoder's forward and recompute backward
+13. enc-kernel — the fused encoder's forward and recompute backward
              against their plain versions at vctk-multi width (C=128, d=64,
              5 layers, non-zero biases) at B=2 and at the training shape
              B=16, T=7680, float32 and bfloat16: z and every gradient within
@@ -120,7 +139,7 @@ nonzero:
              count of z elements whose bits differ from the plain
              version's, and the layers' float64 torch.matmul calls on
              pre-built windows (a yardstick of several library calls).
-13. cli-codec — the codec CLIs as subprocesses on vctk-multi: 2 steps of
+14. cli-codec — the codec CLIs as subprocesses on vctk-multi: 2 steps of
              ``vqvae-torch-train --dataset vctk --set
              model.encoder_kernel=pallas`` (B=16, T=7680; the encoder's
              backward kernel), ``vqvae-torch-export`` of that run (equal to
@@ -131,7 +150,7 @@ nonzero:
              one-shot), ``vqvae-torch-generate`` and ``vqvae-torch-score`` on
              the synthetic VCTK tree; each exits 0, and their launch counts
              show the encoder's two kernels and the decode kernel launched.
-14. probes — the four probe modules as subprocesses
+15. probes — the four probe modules as subprocesses
              (``python3 -m vqvae_tpu_torch.probes.<name>``): the upsampler's
              forward and backward kernels against upsample_apply and its
              autograd at the probe's shapes, and against their plain
@@ -341,14 +360,14 @@ class Daemon:
     """The serving daemon as a subprocess, driven through the port's own
     client (``vqvae_tpu_torch.client.CodecClient``)."""
 
-    def __init__(self, npz, workdir):
+    def __init__(self, npz, workdir, engine="kernel"):
         from vqvae_tpu_torch.client import CodecClient
-        self.sock = os.path.join(workdir, "codec.sock")
-        self.log_path = os.path.join(workdir, "serve.log")
+        self.sock = os.path.join(workdir, f"codec_{engine}.sock")
+        self.log_path = os.path.join(workdir, f"serve_{engine}.log")
         self.log = open(self.log_path, "w")
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "vqvae_tpu_torch.cli.serve", "--preset",
-             PRESET, "-m", npz, "--socket", self.sock],
+             PRESET, "-m", npz, "--socket", self.sock, "--engine", engine],
             stdout=self.log, stderr=subprocess.STDOUT, cwd=ROOT)
         deadline = time.monotonic() + 300
         while not os.path.exists(self.sock):
@@ -456,10 +475,71 @@ def serve_phase(flag, cfg_all, device, dc):
             f"({len(codes) * hop / sr:.2f} s of audio)")
         c.shutdown()
         d.proc.wait(timeout=60)
+        d.close()
+        stream_phase(npz, work, codes, tone, outs, flag)
     finally:
         d.close()
         shutil.rmtree(work, ignore_errors=True)
     return launched
+
+
+def stream_phase(npz, work, codes, tone, outs, flag):
+    """A second daemon on the same weights with ``--engine stream``: its
+    decode (greedy, sampled) equals the kernel engine's ``outs`` for the
+    same codes bit for bit, a codes-mode session equals its own one-shot
+    decode, a pcm-mode session its reconstruct; its kernel launch count
+    must rise."""
+    t0 = time.monotonic()
+    d = Daemon(npz, work, engine="stream")
+    try:
+        c = d.client
+        say("serve", t0, f"stream-engine daemon up on {d.sock}")
+        t0 = time.monotonic()
+        ping = c.ping()
+        check(ping["engine"] == "stream",
+              f"daemon not on the stream engine: {ping}")
+        before = ping["kernel_launches"]
+        for name, kw in (("greedy", {"greedy": True}),
+                         ("sampled", {"seed": 7, "temperature": TEMP})):
+            wav = c.decode(codes, speaker=3, **kw)
+            check(np.array_equal(wav, outs[name]), f"stream engine {name} "
+                  "decode != the kernel engine's, bit for bit")
+            with c.open_stream("codes", speaker=3, **kw) as s:
+                check(s.granularity_samples == ping["chunk"] * flag.hop,
+                      f"stream engine granularity {s.granularity_samples}")
+                pieces, i = [], 0
+                for w in (37, 1, 100, len(codes) - 138):
+                    pieces.append(s.push_codes(codes[i:i + w]))
+                    i += w
+                pieces.append(s.close())
+            check(np.array_equal(np.concatenate(pieces), wav),
+                  f"stream engine {name} codes-mode session != its one-shot "
+                  "decode")
+        sr = len(tone)
+        rec, _ = c.reconstruct(tone, greedy=True)
+        check(np.array_equal(rec, outs["reconstruct"]),
+              "stream engine reconstruct != the kernel engine's")
+        with c.open_stream("pcm", greedy=True) as s:
+            pieces = [s.push_pcm(tone[a:b]) for a, b in
+                      ((0, 300), (300, 301), (301, 9000), (9000, sr))]
+            pieces.append(s.close())
+        check(np.array_equal(np.concatenate(pieces), rec),
+              "stream engine pcm-mode session != its reconstruct")
+        stats = c.stats()
+        launched = stats["kernel_launches"] - before
+        check(stats["engine"] == "stream" and launched > 0,
+              f"the stream engine's requests launched no kernel: {stats}")
+        say("serve", t0, "--engine stream: decode (greedy, sampled) == the "
+            "kernel engine's, codes-mode sessions (37, 1, 100, rest) == "
+            "one-shot, reconstruct == the kernel engine's, a pcm-mode "
+            f"session == reconstruct, bit for bit; {launched} kernel "
+            f"launches; realtime {ping['realtime_x']}x, session "
+            f"{ping['session_realtime_x']}x at {ping['chunk']} frames/push;"
+            f" decode p50 {stats['ops']['decode']['ms']['p50']} ms")
+        c.shutdown()
+        d.proc.wait(timeout=60)
+    finally:
+        d.close()
 
 
 def request_phase(dc, flag, device, sr):
@@ -1301,9 +1381,137 @@ def train_cli_vctk_phase():
               f"--bwd-windows 4 did not run the windowed backward: {wcounts}")
         say("train-cli-vctk", t0, f"--bwd-windows 4, 2 steps: exit 0; step 1"
             f" loss1 {wrecs[0]['loss1']:.4f}; launches {wcounts}")
+        grain_tb_run(tree, os.path.join(work, "grain"), recs)
+        host_data_phase(tree)
         return counts, wcounts
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def grain_tb_run(tree, out, straight):
+    """2 steps with ``--loader grain --tensorboard``: the recompute path,
+    the straight run's step 1 and 2 losses (rtol 1e-6: the loader is the
+    only difference), and one event file in <out>/tb whose (tag, step,
+    value) triples equal log.jsonl's, read by the port's own reader."""
+    from vqvae_tpu_torch.train.metrics import read_events
+    t0 = time.monotonic()
+    gcounts, grecs = train_vctk(tree, out, 2, "--loader", "grain",
+                                "--tensorboard")
+    path = ("chunk_fwd", "chunk_bwd_rec", "vq_argmin", "take_rows_bwd")
+    check(all(gcounts[k] > 0 for k in path),
+          f"--loader grain did not run the recompute path: {gcounts}")
+    want = {r["iteration"]: r for r in straight}
+    got = {r["iteration"]: r for r in grecs}
+    check(set(got) == {1, 2} and {1, 2} <= set(want),
+          f"log rows: grain {sorted(got)}, straight {sorted(want)}")
+    worst = 0.0
+    for step in (1, 2):
+        for k in ("loss", "loss1", "loss2", "loss3"):
+            a, b = got[step][k], want[step][k]
+            worst = max(worst, abs(a - b) / max(abs(b), 1e-30))
+            check(np.isclose(a, b, rtol=1e-6, atol=0),
+                  f"--loader grain step {step} {k} {a} != straight {b}")
+    files = os.listdir(os.path.join(out, "tb"))
+    check(len(files) == 1 and files[0].startswith("events.out.tfevents."),
+          f"<out>/tb holds {files}")
+    events = read_events(os.path.join(out, "tb", files[0]))
+    check(events[0]["file_version"] == "brain.Event:2",
+          "the event file does not start with its file_version")
+    triples = [(ev["step"], tag, v) for ev in events[1:]
+               for tag, v in ev["scalars"]]
+    logged = [(r["iteration"], k, float(np.float32(v))) for r in grecs
+              for k, v in r.items() if k != "iteration"]
+    check(triples == logged, "TensorBoard scalars != log.jsonl: "
+          f"{triples[:6]} against {logged[:6]}")
+    say("train-cli-vctk", t0, f"--loader grain --tensorboard, 2 steps: "
+        f"losses at steps 1, 2 == the straight run's (max rel |d| "
+        f"{worst:.3g}, rtol 1e-6); {len(triples)} scalars in "
+        f"{files[0]} == log.jsonl; launches {gcounts}")
+
+
+def host_data_phase(tree):
+    """The host side on the synthetic VCTK tree with vctk-multi's data
+    config: the native decoder serves every load (no scipy load) and
+    equals scipy bit for bit (mono int16); GrainBatchLoader with 2 worker
+    processes gives BatchLoader's first 8 batches bit for bit, from
+    batch 0 and from batch 5, and close() leaves no child process; each
+    loader's ms a batch and each decoder's ms a file (host numbers)."""
+    import multiprocessing
+    from scipy.io import wavfile
+    from vqvae_tpu_torch.audio import wav_io
+    from vqvae_tpu_torch.audio.datasets import WavDataset, scan_vctk
+    from vqvae_tpu_torch.audio.grain_loader import GrainBatchLoader
+    from vqvae_tpu_torch.audio.loader import BatchLoader
+    from vqvae_tpu_torch.configs import get_config
+    from vqvae_tpu_torch.native import bindings
+    t0 = time.monotonic()
+    cfg = get_config(PRESET)
+    paths, ids, _ = scan_vctk(tree)
+    check(bindings.available(), "the native audio library did not build")
+    before = dict(wav_io.decoders)
+    ms = {}
+    t = time.perf_counter()
+    for p in paths:
+        wav_io.load_wav(p, cfg.data.sr)
+    ms["load_wav (native, 48 -> 16 kHz)"] = \
+        1e3 * (time.perf_counter() - t) / len(paths)
+    check(wav_io.decoders["scipy"] == before["scipy"]
+          and wav_io.decoders["native"] == before["native"] + len(paths),
+          f"decoders {before} -> {wav_io.decoders}: a load went to scipy")
+    nat, sci = [], []
+    t = time.perf_counter()
+    for p in paths:
+        nat.append(bindings.load_wav(p))
+    ms["native decode"] = 1e3 * (time.perf_counter() - t) / len(paths)
+    t = time.perf_counter()
+    for p in paths:
+        file_sr, data = wavfile.read(p)
+        sci.append((data.astype(np.float32) / 32768.0, file_sr))
+    ms["scipy decode"] = 1e3 * (time.perf_counter() - t) / len(paths)
+    for p, (a, asr), (b, bsr) in zip(paths, nat, sci):
+        check(asr == bsr and a.dtype == b.dtype and np.array_equal(a, b),
+              f"{p}: native decode != scipy's")
+    say("host-data", t0, f"{len(paths)} files: every load through the "
+        "native library (no scipy load), its decode == scipy's bit for "
+        f"bit; host ms a file ({nvidia_smi()}): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    t0 = time.monotonic()
+    B = cfg.train.batch_size
+    children = {p.pid for p in multiprocessing.active_children()}
+    lines = []
+    for start in (0, 5):
+        runs = {}
+        for name, make in (
+                ("threads", lambda ds: BatchLoader(ds, B, seed=3,
+                                                   start_batch=start)),
+                ("grain, 2 workers", lambda ds: GrainBatchLoader(
+                    ds, B, seed=3, num_workers=2, start_batch=start))):
+            ds = WavDataset(paths, ids, cfg.data)     # a cold cache each
+            t = time.perf_counter()
+            ld = make(ds)
+            try:
+                batches = [next(ld)]
+                t1 = time.perf_counter()
+                batches += [next(ld) for _ in range(7)]
+                t2 = time.perf_counter()
+            finally:
+                ld.close()
+            runs[name] = batches
+            lines.append(f"{name} from {start}: first batch "
+                         f"{1e3 * (t1 - t):.1f} ms, then "
+                         f"{1e3 * (t2 - t1) / 7:.2f} ms a batch")
+        for (wa, sa), (wb, sb) in zip(runs["threads"],
+                                      runs["grain, 2 workers"]):
+            check(wa.shape == (B, cfg.data.length + 1)
+                  and np.array_equal(wa, wb) and np.array_equal(sa, sb),
+                  f"GrainBatchLoader batches from {start} != BatchLoader's")
+    left = {p.pid for p in multiprocessing.active_children()} - children
+    check(not left, f"close() left worker processes {left}")
+    say("host-data", t0, f"GrainBatchLoader(num_workers=2) == BatchLoader, "
+        f"8 batches of {B} x {cfg.data.length + 1} from batch 0 and from "
+        "5, "
+        "bit for bit; close() left no child process; host times "
+        f"({nvidia_smi()}): " + "; ".join(lines))
 
 
 def train_time_vctk_phase(device, errs):
@@ -1979,11 +2187,17 @@ def main():
                "vqvae_upsample": "upsample.cu",
                "vqvae_decode_chain": "decode_chain.cu",
                "vqvae_embed": "embed.cu"}
-    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
-        # one nvcc per source, all started together
+    from vqvae_tpu_torch.native import bindings
+    with ThreadPoolExecutor(max_workers=len(sources) + 1) as pool:
+        # one nvcc per source, all started together, and g++ for the
+        # native audio library beside them
+        native = pool.submit(bindings.available)
         for f in [pool.submit(build.build, k, [v])
                   for k, v in sources.items()]:
             f.result()
+        check(native.result(), "g++ did not build vqvae_tpu_torch/native/"
+              "audio.cpp")
+    say("build", t0, f"native/audio.cpp -> {bindings.so_path().name}")
     for name, src in sources.items():
         info = build.builds.get(name)
         log = (info or {}).get("log", "")

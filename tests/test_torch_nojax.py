@@ -34,6 +34,9 @@ def test_port_imports_without_jax():
         "import vqvae_tpu_torch.probes.dot, vqvae_tpu_torch.probes.reshape\n"
         "import vqvae_tpu_torch.probes.decode_int8_micro\n"
         "import vqvae_tpu_torch.ops.embed, vqvae_tpu_torch.kernels.embed_cuda\n"
+        "import vqvae_tpu_torch.native.bindings\n"
+        "import vqvae_tpu_torch.audio.grain_loader\n"
+        "import vqvae_tpu_torch.train.metrics\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'vqvae_tpu'))\n"
         "print(bad)\n"

@@ -1,15 +1,12 @@
 """The port's trainer refuses the settings it does not carry out.
 
-``vqvae-torch-train`` trains on one device and logs to ``log.jsonl``;
-TensorBoard and the JAX package's meshes are not ported.  A run that
-asks for either must stop before it writes anything, not train on
-without them.
+``vqvae-torch-train`` trains on one device; the JAX package's meshes are
+not ported.  A run that asks for one must stop before it writes
+anything, not train on without it.  (TensorBoard and ``--loader grain``
+are ported: tests/test_torch_metrics.py, tests/test_torch_grain_loader.py.)
 """
 
 import dataclasses
-import os
-import subprocess
-import sys
 
 import pytest
 import torch
@@ -19,11 +16,9 @@ from vqvae_tpu_torch.configs import get_config
 from vqvae_tpu_torch.train.loop import train
 
 torch.set_num_threads(1)
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.mark.parametrize("setting,value", [
-    ("tensorboard", True),
     ("mesh_model", 2),
     ("mesh_seq", 2),
     ("mesh_slices", 2),
@@ -48,15 +43,3 @@ def test_train_takes_the_settings_it_runs(tmp_path):
     state = train(cfg, SineDataset(cfg.data), out_dir=str(tmp_path / "run"),
                   num_steps=1, device="cpu", echo=False)
     assert state.step == 1
-
-
-def test_train_cli_refuses_tensorboard(tmp_path):
-    out = tmp_path / "run"
-    r = subprocess.run(
-        [sys.executable, "-m", "vqvae_tpu_torch.cli.train", "--preset",
-         "tiny", "--dataset", "sine", "--steps", "1", "--device", "cpu",
-         "--out", str(out), "--set", "train.tensorboard=true"],
-        capture_output=True, text=True, cwd=ROOT, timeout=300)
-    assert r.returncode != 0
-    assert "train.tensorboard" in r.stdout + r.stderr
-    assert not out.exists()

@@ -56,7 +56,11 @@ class WavDataset:
 
     ``sample(rng)`` -> (float32 ``[length+1]``, speaker id).  Decoded
     audio is kept in a bounded cache (oldest entry out first) under a
-    lock, since the loader's worker threads share the dataset."""
+    lock, since the loader's worker threads share the dataset.  A
+    pickled copy (what a worker process of ``audio/grain_loader.py``
+    receives) carries the paths and the config but neither the lock nor
+    the cache: it makes both anew, so each worker process keeps a cache
+    of its own."""
 
     def __init__(self, paths: Sequence[str], speaker_ids: Sequence[int],
                  cfg: DataConfig, cache_size: int = 4096):
@@ -72,6 +76,16 @@ class WavDataset:
 
     def __len__(self) -> int:
         return len(self.paths)
+
+    def __getstate__(self) -> dict:
+        state = self.__dict__.copy()
+        del state["_cache"], state["_cache_lock"]
+        return state
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        self._cache = {}
+        self._cache_lock = threading.Lock()
 
     def _decoded(self, i: int) -> np.ndarray:
         with self._cache_lock:

@@ -21,6 +21,16 @@ from typing import Iterator, Tuple
 import numpy as np
 
 
+def make_batch(dataset, batch_size: int, seed: int, index: int
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """Batch ``index`` of the ``seed`` stream: rows drawn by
+    ``dataset.sample`` from ``default_rng(SeedSequence([seed, index]))``.
+    Every loader kind builds its batches with this one function."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, index]))
+    wavs, spks = zip(*(dataset.sample(rng) for _ in range(batch_size)))
+    return np.stack(wavs), np.asarray(spks, dtype=np.int32)
+
+
 class BatchLoader:
     """Iterator of (wav ``[B, length+1]`` float32, speaker ``[B]``
     int32).  ``close()`` stops its threads."""
@@ -46,11 +56,7 @@ class BatchLoader:
             t.start()
 
     def make_batch(self, index: int) -> Tuple[np.ndarray, np.ndarray]:
-        rng = np.random.default_rng(np.random.SeedSequence([self.seed,
-                                                            index]))
-        wavs, spks = zip(*(self.dataset.sample(rng)
-                           for _ in range(self.batch_size)))
-        return np.stack(wavs), np.asarray(spks, dtype=np.int32)
+        return make_batch(self.dataset, self.batch_size, self.seed, index)
 
     def _worker(self) -> None:
         while not self._stop.is_set():

@@ -1,22 +1,43 @@
 """Host-side wav decode / resample / silence trim (port of
 ``vqvae_tpu/audio/wav_io.py``).
 
-Decoding goes through ``scipy.io.wavfile`` only: the JAX package's
-native C++ decoder (``vqvae_tpu/native``) is not ported (ROADMAP).
-Resampling is polyphase (``scipy.signal.resample_poly``); trimming is
-the energy gate of ``librosa.effects.trim`` with ``top_db``.
+Decoding goes through the port's native C++ decoder
+(``vqvae_tpu_torch/native``, built with g++ at first use) when it
+builds, and through ``scipy.io.wavfile`` otherwise, as the JAX
+package's does.  ``decoders`` counts the loads each one served in this
+process.  The two agree bit for bit on mono int16 (``x / 32768`` is
+exact either way); on a stereo file the native downmix averages in
+double, scipy's in the file's dtype or float64.  Resampling is polyphase
+(``scipy.signal.resample_poly``); trimming is the energy gate of
+``librosa.effects.trim`` with ``top_db``.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 from scipy.io import wavfile
 from scipy.signal import resample_poly
 
+from vqvae_tpu_torch.native import bindings as _native
+
+# loads served by each decoder in this process (the loader's threads
+# share it, hence the lock)
+decoders = {"native": 0, "scipy": 0}
+_decoders_lock = threading.Lock()
+
 
 def load_wav(path: str, sr: int = 16000) -> np.ndarray:
     """Load a wav file as mono float32 in [-1, 1] at sample rate ``sr``."""
-    file_sr, data = wavfile.read(path)
+    if _native.available():
+        data, file_sr = _native.load_wav(path)
+        served = "native"
+    else:
+        file_sr, data = wavfile.read(path)
+        served = "scipy"
+    with _decoders_lock:
+        decoders[served] += 1
     wav = _to_float_mono(data)
     if file_sr != sr:
         g = np.gcd(int(file_sr), int(sr))

@@ -20,13 +20,29 @@ connection; audio crosses as base64 int16 PCM at the model rate.
   {"op": "stream_close", "session": id}
   {"op": "shutdown"}
 
-Decode runs through the ``kernel`` engine (``infer/kernel_stream``):
-one call of the resumable fused CUDA decode kernel per request, and per
-session push over the condition that push finalized; a session's output
-equals one-shot decode bit for bit at equal seed.
-``ping`` and ``stats`` also report ``kernel_launches``, the decode
-kernel's launch count in this process.  The request's ``seed`` is the
-kernel's Philox key.
+Decode runs through one of two engines (``--engine``), both on the
+resumable fused CUDA decode kernel:
+
+- ``kernel`` (the default, and what ``auto`` picks;
+  ``infer/kernel_stream``): one kernel call per request, and per session
+  push over the condition that push finalized;
+- ``stream`` (the JAX daemon's ``stream`` engine): a
+  ``StreamingSynthesizer`` (``infer/streaming``) per request or session
+  on the weights and upsampler table the daemon packed once, fed
+  ``--chunk``-frame pushes and then 1-frame pushes for the tail (a
+  session's ``granularity_samples`` is ``chunk * hop``), so a request
+  is several kernel calls.
+
+Both run the same kernel, with the same Philox noise indexed by absolute
+step, over the same per-code upsampler table, so the two engines'
+requests and sessions, and one-shot ``infer/fastgen.decode_from_codes``,
+give the same waveform bit for bit, greedy and sampled.  The ``stream``
+engine lifts none of the decode kernel's width checks
+(``kernels/decode_cuda.py::check_widths``): a model the kernel refuses is
+refused by both engines, never routed to a plain decoder on the card.
+``ping`` and ``stats`` also report ``engine`` and ``kernel_launches``,
+the decode kernel's launch count in this process.  The request's
+``seed`` is the kernel's Philox key.
 
 ``--device cuda`` (the default) fails at startup without a GPU; the
 daemon never moves to the CPU by itself.  ``--device cpu`` runs the
@@ -53,10 +69,14 @@ import torch
 from vqvae_tpu_torch.cli.common import add_config_args, add_device_arg, \
     load_params, resolve_config, resolve_device
 from vqvae_tpu_torch.infer.enc_streaming import StreamingEncoder
-from vqvae_tpu_torch.infer.kernel_stream import KernelStreamDecoder
+from vqvae_tpu_torch.infer.kernel_stream import (
+    KernelStreamDecoder,
+    _check_codes,
+)
+from vqvae_tpu_torch.infer.streaming import StreamingSynthesizer
 from vqvae_tpu_torch.kernels import decode_cuda
 
-ENGINES = ("kernel",)
+ENGINES = ("kernel", "stream")
 
 
 def pcm16_to_float(b64: str) -> np.ndarray:
@@ -71,7 +91,7 @@ def float_to_pcm16(wav: np.ndarray) -> str:
 
 class Codec:
     """The warm engines behind the socket loop: the streaming encoder
-    and the resumable-kernel decoder, on one device."""
+    and the decode engine (``kernel`` or ``stream``), on one device."""
 
     def __init__(self, params, cfg, chunk: int = 16, engine: str = "kernel",
                  device: str = "cuda"):
@@ -99,12 +119,23 @@ class Codec:
         K = self.cfg.model.K
         if codes.min() < 0 or codes.max() >= K:
             raise ValueError(f"code ids must be in [0, {K})")
+        if self.engine == "stream":
+            s = self._session_decoder(speaker, seed, temperature, greedy)
+            return np.concatenate([s.push(codes[None]), s.close()],
+                                  axis=1)[0]
         return self._dec.decode(codes[None], [speaker], seed, temperature,
                                 greedy)[0]
 
     def _session_decoder(self, speaker: int, seed: int, temperature: float,
                          greedy: bool):
         """A fresh decode session on the engine's warm weights."""
+        if self.engine == "stream":
+            dec = self._dec
+            syn = StreamingSynthesizer.from_parts(
+                self.cfg.model, dec.gp, dec._prep([speaker]),
+                dec._ups.fork(), seed, temperature, greedy)
+            return _SynthSession(syn, self.chunk, self.cfg.model.K,
+                                 self.device)
         return self._dec.session([speaker], seed, temperature, greedy)
 
     def measure_realtime(self, reps: int = 3) -> float:
@@ -199,6 +230,33 @@ class Stats:
                     "ops": ops}
 
 
+class _SynthSession:
+    """Incremental decode on the ``stream`` engine: each push is host-
+    sliced into ``chunk``-frame pushes, then 1-frame pushes for the
+    tail, through one ``StreamingSynthesizer`` (as the JAX daemon's
+    ``stream`` engine slices); its noise is indexed by absolute step, so
+    the concatenated output equals one-shot decode whatever the slicing.
+    """
+
+    def __init__(self, syn: StreamingSynthesizer, chunk: int, K: int,
+                 device: torch.device):
+        self.syn, self.chunk, self.K, self.device = syn, chunk, K, device
+
+    def push(self, codes: np.ndarray) -> np.ndarray:
+        codes = torch.from_numpy(_check_codes(codes, self.K)).to(self.device)
+        C, n = self.chunk, codes.shape[1]
+        steady = n - n % C
+        bounds = [(i, i + C) for i in range(0, steady, C)]
+        bounds += [(i, i + 1) for i in range(steady, n)]
+        pieces = [self.syn.push(codes[:, a:b]) for a, b in bounds]
+        if not pieces:
+            return np.zeros((codes.shape[0], 0), np.float32)
+        return torch.cat(pieces, dim=1).cpu().numpy()
+
+    def close(self) -> np.ndarray:
+        return self.syn.flush().cpu().numpy()
+
+
 class StreamSession:
     """One live codec stream: codes (or PCM through the exact streaming
     encoder) in, waveform out as it finalizes.  Owned by the connection
@@ -222,9 +280,13 @@ class StreamSession:
 
     @property
     def granularity_samples(self) -> int:
-        """Decode emission granularity: every push returns the audio of
-        the code frames it finalized, one frame = ``hop`` samples."""
-        return self.codec.cfg.model.hop
+        """Decode emission granularity: on the ``kernel`` engine every
+        push returns the audio of the code frames it finalized (one frame
+        = ``hop`` samples); the ``stream`` engine decodes ``chunk``
+        frames at a time."""
+        hop = self.codec.cfg.model.hop
+        return self.codec.chunk * hop if self.codec.engine == "stream" \
+            else hop
 
     def push(self, req: dict) -> np.ndarray:
         if self.mode == "pcm":
@@ -313,7 +375,8 @@ def handle(codec: Codec, req: dict, stats: Stats | None = None,
                 "session_realtime_x": codec.session_realtime_x,
                 "kernel_launches": decode_cuda.launches}
     if op == "stats":
-        return (stats.snapshot() if stats is not None
+        return ({**stats.snapshot(), "engine": codec.engine}
+                if stats is not None
                 else {"ok": False, "error": "stats unavailable"})
     if op == "encode":
         codes = codec.encode(pcm16_to_float(req["pcm16"]))
@@ -563,12 +626,15 @@ def main() -> None:
                    help="serve the same ops over HTTP/1.1 instead")
     add_device_arg(p)
     p.add_argument("--chunk", type=int, default=16,
-                   help="code frames of the realtime probes: a "
+                   help="code frames of the realtime probes (a "
                         "2*chunk+1-frame request and chunk-frame session "
-                        "pushes")
+                        "pushes) and of the stream engine's pushes")
     p.add_argument("--engine", choices=("auto",) + ENGINES, default="auto",
-                   help="decode engine: 'kernel' = the resumable fused "
-                        "CUDA decode kernel ('auto' picks it)")
+                   help="decode engine: 'kernel' = one resumable fused "
+                        "CUDA decode kernel call per request or push "
+                        "('auto' picks it); 'stream' = a streaming "
+                        "synthesizer on the same kernel, --chunk frames "
+                        "a push")
     p.add_argument("--idle-timeout", type=float, default=300.0,
                    help="disconnect a client after this many idle seconds")
     args = p.parse_args()

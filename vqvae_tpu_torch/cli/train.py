@@ -13,10 +13,12 @@ runs the kernels' plain versions.  At exit it prints the kernels'
 launch counts as one JSON line.  ``--decoder-kernel`` picks
 the decoder stack (``pallas`` recompute, ``pallas_sg`` saved gates,
 ``xla`` the plain layer loop), ``--impl`` the VQ search; any other
-field goes through ``--set``.  ``--profile N`` traces N steps with
-``torch.profiler`` into ``<out>/profile`` (a Chrome trace).  Not ported
-yet: the mesh flags (ROADMAP A8), ``--loader grain`` and
-``--tensorboard``.
+field goes through ``--set``.  ``--loader grain`` builds batches in
+worker processes (the same stream as ``threads``), ``--tensorboard``
+adds TensorBoard scalars in ``<out>/tb``, and ``<out>/loss.png`` holds
+the loss curves when matplotlib is installed.  ``--profile N`` traces N
+steps with ``torch.profiler`` into ``<out>/profile`` (a Chrome trace).
+Not ported yet: the mesh flags (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -56,10 +58,13 @@ def main(argv=None) -> None:
     p.add_argument("--bwd-windows", type=int, default=None,
                    help="pallas decoder kernel: run the recompute "
                         "backward over N time windows")
-    p.add_argument("--loader", default=None, choices=["threads"],
-                   help="host input pipeline (worker threads)")
+    p.add_argument("--loader", default=None, choices=["threads", "grain"],
+                   help="host input pipeline (one stream: worker threads, "
+                        "or grain's worker processes)")
     p.add_argument("--eval-every", type=int, default=None,
                    help="validation interval in steps (0: off)")
+    p.add_argument("--tensorboard", action="store_true",
+                   help="also write TensorBoard scalars to <out>/tb")
     p.add_argument("--profile", type=int, default=None, metavar="N",
                    help="torch.profiler-trace N steps to <out>/profile")
     add_device_arg(p)
@@ -71,6 +76,7 @@ def main(argv=None) -> None:
                             ("out_dir", args.out),
                             ("loader", args.loader),
                             ("eval_every", args.eval_every),
+                            ("tensorboard", args.tensorboard or None),
                             ("profile_steps", args.profile))
           if v is not None}
     if tr:

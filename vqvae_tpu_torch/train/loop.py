@@ -7,11 +7,13 @@ at ``eval_every`` on its own schedule, closing the rate interval first
 so that evaluation never counts against the training rate; checkpoints
 the whole train state under ``<out>/checkpoints/`` and exports the
 weights to ``<out>/weights.npz`` at ``checkpoint_every`` and at the end.
-``resume`` continues from the newest checkpoint, data stream included.
-Interval rates are read on the host clock after a
-``torch.cuda.synchronize()``.  Meshes wait for ROADMAP A8 and
-TensorBoard for A5: a run that asks for either is refused before it
-writes anything.
+``resume`` continues from the newest checkpoint, data stream included,
+under either loader (``train.loader``: ``threads`` or ``grain``, one
+stream).  Interval rates are read on the host clock after a
+``torch.cuda.synchronize()``.  ``train.tensorboard`` adds TensorBoard
+scalars in ``<out>/tb``; the loss curves go to ``<out>/loss.png`` at the
+end.  Meshes wait for ROADMAP A8: a run that asks for one is refused
+before it writes anything.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from vqvae_tpu_torch.audio.loader import BatchLoader
+from vqvae_tpu_torch.audio.grain_loader import make_loader
 from vqvae_tpu_torch.configs import Config
 from vqvae_tpu_torch.configs.presets import config_to_json
 from vqvae_tpu_torch.train.checkpoint import (
@@ -52,13 +54,9 @@ def train(cfg: Config, dataset, out_dir: Optional[str] = None,
     device = torch.device(device)
     out_dir = out_dir or cfg.train.out_dir
     num_steps = cfg.train.num_steps if num_steps is None else num_steps
-    if cfg.train.loader != "threads":
-        raise ValueError(f"loader {cfg.train.loader!r} is not ported "
-                         "(the port's loader is 'threads')")
+    if cfg.train.loader not in ("threads", "grain"):
+        raise ValueError(f"unknown loader kind: {cfg.train.loader!r}")
     # settings the one-device trainer would otherwise ignore in silence
-    if cfg.train.tensorboard:
-        raise ValueError("train.tensorboard=True is not ported (the port "
-                         "logs to log.jsonl only)")
     for name in ("mesh_model", "mesh_seq", "mesh_slices"):
         if getattr(cfg.train, name) != 1:
             raise ValueError(f"train.{name}={getattr(cfg.train, name)} is "
@@ -77,9 +75,11 @@ def train(cfg: Config, dataset, out_dir: Optional[str] = None,
     evaluator = None
     if valid_dataset is not None and cfg.train.eval_every > 0:
         evaluator = Evaluator(valid_dataset, cfg, device, impl)
-    loader = BatchLoader(dataset, cfg.train.batch_size, seed=cfg.train.seed,
-                         start_batch=start)
-    logger = MetricsLogger(out_dir)
+    # batch i is a pure function of (seed, i) under either loader kind, so
+    # a resumed run sees what a straight run would have
+    loader = make_loader(cfg.train.loader, dataset, cfg.train.batch_size,
+                         seed=cfg.train.seed, start_batch=start)
+    logger = MetricsLogger(out_dir, tensorboard=cfg.train.tensorboard)
     weights = os.path.join(out_dir, "weights.npz")
     every = cfg.train.checkpoint_every
     # trace steps [prof_at, prof_at + prof): from the tenth step after the
@@ -125,6 +125,7 @@ def train(cfg: Config, dataset, out_dir: Optional[str] = None,
         if num_steps > start and num_steps % every:
             save_checkpoint(ckpt_dir, state, cfg.train.keep_checkpoints)
             export_weights(weights, state.params)
+        logger.plot()
     finally:
         if prof_ctx is not None:
             prof_ctx.__exit__(None, None, None)
