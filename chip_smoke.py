@@ -2161,6 +2161,356 @@ def probes_phase(decode_us):
     return out
 
 
+MESH_TOL = 1e-4          # losses: JAX's sharding tolerance
+MESH_RTOL, MESH_ATOL = 2e-5, 2e-6   # codebook: JAX's sharding tolerance
+# step-1 gradients, of each tensor's max: the repo's bf16 gate (the
+# weights used in bf16 get bf16 gradients, one ulp 2^-8 of their max)
+MESH_GRAD_TOL = 3e-2
+MESH_JOIN_S = 240        # each world's own time limit
+
+
+def mesh_batches(cfg, n):
+    """``n`` batches of the seeded sine stream, whole, on the host."""
+    from vqvae_tpu_torch.audio.datasets import SineDataset
+    from vqvae_tpu_torch.audio.loader import make_batch
+    ds = SineDataset(cfg.data)
+    return [make_batch(ds, cfg.train.batch_size, 0, i) for i in range(n)]
+
+
+def mesh_steps(cfg, mesh, batches, device, save=None, resume=None):
+    """Train steps over ``batches`` on ``mesh`` (None: one process): each
+    step's metrics, codebook and whole EMA count (on the host), the last
+    step's ms and staged bytes, the kernels' launches in these steps.
+    ``resume``: start from the newest checkpoint there; ``save``: write
+    a checkpoint there after the first step and go on (both collective
+    on a mesh, through ``train/checkpoint.py``)."""
+    import torch
+    from vqvae_tpu_torch.cli.common import launch_counts
+    from vqvae_tpu_torch.parallel import collectives
+    from vqvae_tpu_torch.parallel.distributed import put_global_batch
+    from vqvae_tpu_torch.parallel.mesh import batch_sharding
+    from vqvae_tpu_torch.train.checkpoint import (restore_checkpoint,
+                                                  save_checkpoint)
+    from vqvae_tpu_torch.train.state import create_train_state
+    from vqvae_tpu_torch.train.step import train_step
+    state = create_train_state(cfg, device, mesh=mesh)
+    if resume is not None:
+        restore_checkpoint(resume, state)
+    rows = batch_sharding(mesh).rows(cfg.train.batch_size)
+    before = launch_counts()
+    out = {"losses": [], "metrics": [], "codebook": [], "count": []}
+    for wav, spk in batches:
+        torch.cuda.synchronize()
+        s0, t1 = collectives.staged_bytes, time.perf_counter()
+        m = train_step(state, *put_global_batch(mesh, wav[rows], spk[rows],
+                                                device=device), cfg)
+        out["losses"].append(float(m["loss"]))
+        torch.cuda.synchronize()
+        out["ms"] = 1e3 * (time.perf_counter() - t1)
+        out["staged"] = collectives.staged_bytes - s0
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        out["codebook"].append(
+            state.params["vq"]["codebook"].detach().cpu().clone())
+        vq = state.vq_state if state.par is None else \
+            state.par.full_vq(state.vq_state)
+        out["count"].append(vq.count.cpu().clone())
+        if "grads" not in out:   # the first step's, as Adam took them
+            g = ({n.replace(".", "/"): p.grad for n, p in
+                  state.params.named_parameters() if p.grad is not None}
+                 if state.par is None else state.par.full_grads())
+            out["grads"] = {k: v.cpu().clone() for k, v in g.items()}
+            out["weights"] = torch.cat([p.detach().reshape(-1).float().cpu()
+                                        for p in state.params.parameters()])
+            if save is not None:
+                save_checkpoint(save, state)
+    after = launch_counts()
+    out["launches"] = {k: after[k] - before[k] for k in after}
+    return out
+
+
+def mesh_worker(job, out):
+    """One rank of the mesh phase (``torchrun --nproc-per-node N
+    chip_smoke.py --mesh-worker JOB OUT``, started by ``mesh_phase``).
+    ``nccl1``: a world of one over NCCL, two stretch steps without a
+    mesh (a checkpoint after the first) and through the mesh code, two
+    without a mesh and with restarts off, and the plain-stack vctk-multi
+    step the SP check holds to; ``gloo2``: two ranks sharing the card
+    over gloo: DP 2 (from scratch, from the one-process checkpoint, and
+    with restarts off), data=1 x model=2 (from scratch with a checkpoint
+    after the first step, and from the one-process checkpoint), then
+    seq=2."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from vqvae_tpu_torch.configs import get_config
+    from vqvae_tpu_torch.parallel.distributed import (
+        initialize_from_env, rank_device, shutdown)
+    from vqvae_tpu_torch.parallel.mesh import make_mesh
+    initialize_from_env("cuda")   # NCCL for one rank, gloo for two
+    device = rank_device("cuda")
+    cfg = get_config(TRAIN_PRESET)
+    no_restart = cfg.replace(model=dataclasses.replace(
+        cfg.model, code_restart_threshold=0))
+    batches = mesh_batches(cfg, 2)
+    sp_cfg = get_config(PRESET)
+    sp_cfg = sp_cfg.replace(
+        model=dataclasses.replace(sp_cfg.model, decoder_kernel="xla",
+                                  head_kernel="xla"),
+        train=dataclasses.replace(sp_cfg.train, batch_size=2))
+    sp_batches = mesh_batches(sp_cfg, 1)
+    ck_one = os.path.join(out, "ck-one")
+    res = {}
+    if job == "nccl1":
+        res["one"] = mesh_steps(cfg, None, batches, device, save=ck_one)
+        res["mesh1"] = mesh_steps(cfg, make_mesh(device_type="cuda"),
+                                  batches, device)
+        res["one_norestart"] = mesh_steps(no_restart, None, batches, device)
+        res["sp_one"] = mesh_steps(sp_cfg, None, sp_batches, device)
+    else:
+        dp = make_mesh(device_type="cuda")
+        res["dp"] = mesh_steps(cfg, dp, batches, device)
+        res["dp_from1"] = mesh_steps(cfg, dp, batches[1:], device,
+                                     resume=ck_one)
+        res["dp_norestart"] = mesh_steps(no_restart, dp, batches, device)
+        tp = make_mesh(data=1, model=2, device_type="cuda")
+        res["tp"] = mesh_steps(cfg, tp, batches, device,
+                               save=os.path.join(out, "ck-tp"))
+        res["tp_from1"] = mesh_steps(cfg, tp, batches[1:], device,
+                                     resume=ck_one)
+        res["sp"] = mesh_steps(sp_cfg, make_mesh(data=1, seq=2,
+                                                 device_type="cuda"),
+                               sp_batches, device)
+    res["device"] = str(device)
+    dist.barrier()
+    torch.save(res, os.path.join(out, f"{job}-rank{dist.get_rank()}.pt"))
+    shutdown()
+
+
+def mesh_log(logs, r, stream):
+    """Rank ``r``'s ``stream`` ('stdout', 'stderr') as torchrun's
+    ``--redirects`` wrote it under ``logs``."""
+    import glob
+    found = glob.glob(os.path.join(logs, "*", "attempt_0", str(r),
+                                   f"{stream}.log"))
+    if not found:
+        return f"(no {stream}.log for rank {r})"
+    with open(found[0]) as f:
+        return f.read()
+
+
+def mesh_world(job, n, out):
+    """Run ``n`` ranks of ``mesh_worker`` ``job`` under torchrun
+    (``--standalone`` picks a free local port); each rank's result and
+    rank 0's standard error."""
+    import signal
+    import torch
+    logs = os.path.join(out, f"logs-{job}")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("MASTER_", "RANK", "LOCAL_RANK",
+                                "WORLD_SIZE", "LOCAL_WORLD_SIZE"))}
+    p = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(n), "--log-dir", logs, "--redirects", "3",
+         os.path.abspath(__file__), "--mesh-worker", job, out],
+        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, start_new_session=True)
+    try:
+        agent = p.communicate(timeout=MESH_JOIN_S)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        p.communicate()
+        fail(f"mesh {job}: the world hung past {MESH_JOIN_S} s\n"
+             + "\n".join(mesh_log(logs, r, "stderr")[-3000:]
+                         for r in range(n)))
+    check(p.returncode == 0, f"mesh {job}: torchrun exited {p.returncode}:"
+          f"\n{agent[-3000:]}\n" + "\n".join(
+              f"--- rank {r}\n{mesh_log(logs, r, 'stderr')[-6000:]}"
+              for r in range(n)))
+    return ([torch.load(os.path.join(out, f"{job}-rank{r}.pt"))
+             for r in range(n)], mesh_log(logs, 0, "stderr"))
+
+
+def mesh_phase(device, smi):
+    """The parallel layer on the card: the decode split by rows (row0),
+    a world of one over NCCL through the mesh code, two gloo ranks on the
+    one card (DP 2, model 2, seq 2) held to one process."""
+    import torch
+    from vqvae_tpu_torch.configs import get_config
+    from vqvae_tpu_torch.infer.fastgen import decode_from_codes
+    from vqvae_tpu_torch.infer.parallel import decode_from_codes_sharded
+    from vqvae_tpu_torch.kernels import decode_cuda as dc
+    t0 = time.monotonic()
+    cfg = get_config(PRESET).model
+    params = setup_model(cfg, device, seed=3)
+    g = torch.Generator().manual_seed(5)
+    codes = torch.randint(0, cfg.K, (4, 40), generator=g).to(device)
+    spk = torch.tensor([0, 7, 50, 108], device=device) % cfg.n_speakers
+    n0 = dc.launches
+    for impl in ("lax", "lowmem"):
+        full = decode_from_codes(params, cfg, codes, spk, 21, TEMP,
+                                 impl=impl)
+        part = decode_from_codes(params, cfg, codes[2:], spk[2:], 21, TEMP,
+                                 impl=impl, row0=2)
+        check(torch.equal(part, full[2:]), f"mesh: sampled {impl} decode of "
+              "rows 2:4 with row0=2 differs from rows 2:4 of the B=4 call")
+        shard = decode_from_codes_sharded(params, cfg, codes, spk, 21,
+                                          [device, device], TEMP, impl=impl)
+        check(torch.equal(shard, full), f"mesh: the sharded {impl} decode "
+              "over [cuda:0, cuda:0] differs from the one-call decode")
+    say("mesh", t0, f"sampled decode B=4 x {codes.shape[1] * cfg.hop} "
+        f"samples, lax and lowmem: rows 2:4 with row0=2 and the decode "
+        f"sharded over [cuda:0, cuda:0] equal the one call bit for bit "
+        f"({dc.launches - n0} decode launches)")
+    torch.cuda.empty_cache()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    out = tempfile.mkdtemp(prefix="mesh-", dir=os.path.join(ROOT, "build"))
+    try:
+        one = mesh_world("nccl1", 1, out)[0][0]
+        two, warned = mesh_world("gloo2", 2, out)
+        # the checkpoint model 2 wrote after its first step, in the
+        # one-device layout, beside the one process's
+        cks = [torch.load(os.path.join(out, d, "step_1.pt"),
+                          weights_only=True) for d in ("ck-one", "ck-tp")]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    check("backend is gloo" in warned, "mesh: two ranks sharing the card "
+          "ran over gloo without the warning of initialize_from_env")
+    ref, m1 = one["one"], one["mesh1"]
+    check(m1["losses"] == ref["losses"]
+          and all(torch.equal(a, b) for a, b in zip(m1["codebook"],
+                                                    ref["codebook"])),
+          f"mesh: the NCCL world of one ({m1['losses']}) is not the "
+          f"one-process step ({ref['losses']}) bit for bit")
+    B = get_config(TRAIN_PRESET).train.batch_size
+    thr = get_config(TRAIN_PRESET).model.code_restart_threshold
+    say("mesh", t0, f"NCCL world of 1, {TRAIN_PRESET} B={B}, 2 steps "
+        f"through the mesh code: losses {m1['losses']} and the codebook "
+        f"equal the one-process step's bit for bit; one-process step "
+        f"{ref['ms']:.1f} ms, through the mesh {m1['ms']:.1f} ms")
+
+    def tensors(tree, path=""):
+        if torch.is_tensor(tree):
+            yield path, tree
+        elif isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from tensors(v, f"{path}/{k}")
+    ck_one, ck_tp = (dict(tensors({k: c[k] for k in ("params", "opt",
+                                                     "vq_state")}))
+                     for c in cks)
+    check(ck_one.keys() == ck_tp.keys() and all(
+        ck_one[k].shape == ck_tp[k].shape for k in ck_one),
+        "mesh tp: its checkpoint is not in the one-device layout: "
+        f"{sorted(set(ck_one) ^ set(ck_tp))[:6]}")
+    worst_ck = max(float((ck_tp[k].float() - v.float()).abs().max())
+                   for k, v in ck_one.items() if v.numel())
+
+    def cb_diff(cb, want):
+        """(max |d|, rows outside the codebook tolerance)."""
+        far = ~torch.isclose(cb, want, rtol=MESH_RTOL,
+                             atol=MESH_ATOL).all(-1)
+        return float((cb - want).abs().max()), int(far.sum())
+
+    kern = ("chunk_fwd", "chunk_bwd", "head_ce_fwd", "head_ce_bwd")
+    for name in ("dp", "tp"):
+        worst_l = max(abs(a - b) for r in two for a, b in zip(
+            r[name]["losses"], ref["losses"]))
+        check(worst_l <= MESH_TOL, f"mesh {name}: losses off the "
+              f"one-process steps by {worst_l} > {MESH_TOL}")
+        # the one-process step: the codebook after the first step, where
+        # both runs start from the same weights
+        cb, want = two[0][name]["codebook"][0], ref["codebook"][0]
+        worst_c = float((cb - want).abs().max())
+        check(torch.allclose(cb, want, rtol=MESH_RTOL, atol=MESH_ATOL),
+              f"mesh {name}: codebook off by {worst_c} after one step "
+              f"(rtol {MESH_RTOL}, atol {MESH_ATOL})")
+        # the second step from the one process's own step-1 checkpoint
+        # (weights, Adam's moments, the EMA state): the same start again
+        fr = two[0][name + "_from1"]
+        l2 = max(abs(r[name + "_from1"]["losses"][0] - ref["losses"][1])
+                 for r in two)
+        check(l2 <= MESH_TOL, f"mesh {name}: step 2 from the one-process "
+              f"checkpoint has a loss off by {l2} > {MESH_TOL}")
+        c2, rows2 = cb_diff(fr["codebook"][0], ref["codebook"][1])
+        check(rows2 == 0, f"mesh {name}: step 2 from the one-process "
+              f"checkpoint leaves the codebook off by {c2} on {rows2} rows "
+              f"(rtol {MESH_RTOL}, atol {MESH_ATOL})")
+        # the first step's gradients, each against its tensor's max: a
+        # mean of the wrong scale or a lost shard is off by >= 1/2
+        grads, want_g = two[0][name]["grads"], ref["grads"]
+        check(grads.keys() == want_g.keys(), f"mesh {name}: gradients of "
+              f"{sorted(set(grads) ^ set(want_g))} on one side only")
+        worst_g, worst_k = max(
+            (float((grads[k] - v).abs().max())
+             / max(float(v.abs().max()), 1e-30), k)
+            for k, v in want_g.items())
+        check(worst_g <= MESH_GRAD_TOL, f"mesh {name}: the step-1 gradient "
+              f"of {worst_k} off by {worst_g} of its max > {MESH_GRAD_TOL}")
+        for i in range(len(ref["codebook"])):
+            check(torch.equal(two[0][name]["codebook"][i],
+                              two[1][name]["codebook"][i]),
+                  f"mesh {name}: the two ranks hold different codebooks")
+        for r, res in enumerate(two):
+            for k in kern:
+                check(res[name]["launches"][k] > 0,
+                      f"mesh {name}: rank {r} launched no {k}")
+        # the second step of the runs from scratch starts from weights
+        # that already differ by float32 summation order: how far its
+        # codebook moved, with the dead-code restart on and off
+        dw = (two[0][name]["weights"] - ref["weights"]).abs()
+        s2, far2 = cb_diff(two[0][name]["codebook"][1], ref["codebook"][1])
+        restarted = ((two[0][name]["count"][1] == thr)
+                     != (ref["count"][1] == thr))
+        if name == "tp":
+            # model 2 runs the whole batch on each rank: its second step
+            # is the one process's too, past the checkpoint it wrote
+            check(far2 == 0, f"mesh tp: codebook off by {s2} on {far2} "
+                  "rows after step 2 (a checkpoint written after step 1)")
+            extra = (f"its step-1 checkpoint (one-device layout) within "
+                     f"{worst_ck:.3g} of the one process's")
+        else:
+            n2, nfar = cb_diff(two[0]["dp_norestart"]["codebook"][1],
+                               one["one_norestart"]["codebook"][1])
+            extra = (f"restarts off, from scratch: step 2 codebook "
+                     f"{n2:.3g} on {nfar} rows past the tolerance, losses "
+                     f"{two[0]['dp_norestart']['losses']} vs "
+                     f"{one['one_norestart']['losses']}")
+        say("mesh", t0, f"gloo {'DP 2' if name == 'dp' else 'data 1 x model 2'}"
+            f" on one card ({two[0]['device']}, {two[1]['device']}), "
+            f"{TRAIN_PRESET} B={B} ({B // 2 if name == 'dp' else B} a rank),"
+            f" 2 steps: worst loss diff {worst_l:.3g} <= {MESH_TOL}, "
+            f"step-1 gradients within {worst_g:.3g} of each tensor's max "
+            f"({worst_k}), "
+            f"codebook max|d| {worst_c:.3g} after step 1 (all weights "
+            f"{float(dw.max()):.3g}, {int((dw > 1e-6).sum())} of "
+            f"{dw.numel()} past 1e-6); step 2 from the one process's "
+            f"checkpoint: loss {l2:.3g}, codebook {c2:.3g} (0 rows past the "
+            f"tolerance); from scratch after step 2 {s2:.3g} on {far2} "
+            f"rows past the tolerance, {int(restarted.sum())} rows "
+            f"restarted in one run only, perplexity "
+            f"{two[0][name]['metrics'][1]['code_perplexity']:.4f} vs "
+            f"{ref['metrics'][1]['code_perplexity']:.4f}; {extra}; step "
+            f"{two[0][name]['ms']:.1f} ms (one process {ref['ms']:.1f}); "
+            f"staged {two[0][name]['staged']} bytes a step a rank; launches "
+            "rank 0 "
+            + json.dumps({k: two[0][name]['launches'][k] for k in kern})
+            + ", rank 1 "
+            + json.dumps({k: two[1][name]['launches'][k] for k in kern}))
+    sp_ref = one["sp_one"]["losses"][0]
+    worst_sp = max(abs(r["sp"]["losses"][0] - sp_ref) for r in two)
+    check(worst_sp <= MESH_TOL, f"mesh sp: loss off one rank's by "
+          f"{worst_sp} > {MESH_TOL}")
+    say("mesh", t0, f"gloo seq 2, {PRESET} T={get_config(PRESET).data.length}"
+        " B=2 (plain stack), one "
+        f"step: loss {two[0]['sp']['losses'][0]:.6f} vs one rank "
+        f"{sp_ref:.6f}, diff {worst_sp:.3g} <= {MESH_TOL}; step "
+        f"{two[0]['sp']['ms']:.1f} ms (one rank "
+        f"{one['sp_one']['ms']:.1f}); staged {two[0]['sp']['staged']} "
+        f"bytes a step a rank; {smi}")
+
+
 def main():
     t0 = time.monotonic()
     smi = nvidia_smi()
@@ -2290,6 +2640,7 @@ def main():
         kernels.append({"name": name, "route": "cuda",
                         "source": f"vqvae_tpu_torch/csrc/{src}",
                         "replaces": replaces, **probe[name]})
+    mesh_phase(device, smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -2297,4 +2648,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        mesh_worker(*sys.argv[2:4])
+    else:
+        main()

@@ -249,13 +249,23 @@ def test_codes_match_jax_encode_on_clear_frames(tmp_path, monkeypatch,
     np.testing.assert_array_equal(got[clear], want[clear])
 
 
-@pytest.mark.parametrize("cli,args", [
-    (decode, ["-i", "c.npy", "--mesh-data", "2"]),
-    (score, ["--dataset", "sine", "--mesh-model", "2"]),
-    (score, ["--dataset", "sine", "--mesh-seq", "2"]),
+@pytest.mark.parametrize("cli,args,why", [
+    (decode, ["-i", "c.npy", "--mesh-data", "2", "--device", "cuda"],
+     "--mesh-data 2: only 1 CUDA device here"),
+    (score, ["--dataset", "sine", "--mesh-model", "2"],
+     "--mesh-model=2 asks for a mesh of 2 ranks, but the world has 1 "
+     "process: .* torchrun --nproc-per-node 2"),
+    (score, ["--dataset", "sine", "--mesh-seq", "2"],
+     "--mesh-seq=2 asks for a mesh of 2 ranks, but the world has 1 "
+     "process: .* torchrun --nproc-per-node 2"),
 ], ids=["decode-mesh-data", "score-mesh-model", "score-mesh-seq"])
-def test_parallel_flags_exit_naming_a8(weights, cli, args):
-    with pytest.raises(SystemExit, match="A8"):
+def test_parallel_flags_exit_naming_a8(weights, cli, args, why,
+                                       monkeypatch):
+    """A mesh larger than what there is stops before anything loads: more
+    shards than cards (one card here), a mesh of ranks in one process."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match=why):
         cli.main(BASE + ["-m", weights, *args])
 
 

@@ -104,6 +104,31 @@ def test_kernel_rejects_bad_inputs(cuda):
         dc.generate_ids(gp._replace(wff=gp.wff.half()), cfg, cond, gcond)
 
 
+@pytest.mark.parametrize("dtype", ["flagship4-bf16", "flagship4-f32"])
+def test_kernel_row0_draws_the_rows_of_the_whole_batch(cuda, dtype):
+    """Sampled rows r0.. of a batch equal, bit for bit, a launch over
+    those rows with row0=r0, one call and resumed (the sharded decode's
+    noise); without it the rows draw rows 0..'s noise."""
+    cfg = CONFIGS[dtype]
+    gp, cond, gcond, _ = _setup(cfg, 5, 200, cuda)
+    full = dc.generate_ids(gp, cfg, cond, gcond, 9, 0.8)
+    for r0, r1 in ((0, 2), (2, 5), (4, 5)):
+        part = dc.generate_ids(gp, cfg, cond[r0:r1], gcond[:, r0:r1], 9,
+                               0.8, row0=r0)
+        assert torch.equal(part, full[r0:r1]), (r0, r1)
+        st = dc.init_decode_state(cfg, r1 - r0, gp.wff.dtype, cuda)
+        a, st = dc.generate_ids_resume(gp, cfg, cond[r0:r1, :77],
+                                       gcond[:, r0:r1], 9, 0.8, st,
+                                       row0=r0)
+        b, _ = dc.generate_ids_resume(gp, cfg, cond[r0:r1, 77:],
+                                      gcond[:, r0:r1], 9, 0.8, st, row0=r0)
+        assert torch.equal(torch.cat([a, b], 1), full[r0:r1])
+    # without row0 the rows draw rows 0..'s noise: another stream
+    assert not torch.equal(dc.generate_ids(gp, cfg, cond[2:5],
+                                           gcond[:, 2:5], 9, 0.8),
+                           full[2:5])
+
+
 # ---- the cluster split: more rows than clusters fit, widths, the query ----
 
 

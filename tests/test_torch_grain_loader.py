@@ -191,3 +191,54 @@ def test_train_refuses_an_unknown_loader_before_writing(tmp_path):
         train(cfg, SineDataset(cfg.data), out_dir=str(out), num_steps=1,
               device="cpu", echo=False)
     assert not out.exists()
+
+
+class _Recording(SineDataset):
+    """SineDataset that notes the thread each sample was built on, and
+    fails from the sample number ``fail_at`` on."""
+
+    def __init__(self, cfg, fail_at=None):
+        super().__init__(cfg)
+        self.threads, self.fail_at = [], fail_at
+
+    def sample(self, rng):
+        import threading
+        if self.fail_at is not None and len(self.threads) >= self.fail_at:
+            raise RuntimeError("reader failed")
+        self.threads.append(threading.current_thread().name)
+        return super().sample(rng)
+
+
+def test_in_process_loader_reads_ahead_on_a_thread():
+    """num_workers=0 builds batches ahead of the consumer on one
+    background thread (the JAX package's ReadOptions(num_threads=1,
+    prefetch_buffer_size=prefetch)), keeps BatchLoader's stream, and
+    close() joins the thread."""
+    import threading
+    import time
+    cfg = DataConfig(length=128, n_speakers=4)
+    ds = _Recording(cfg)
+    loader = GrainBatchLoader(ds, 2, seed=5, prefetch=3)
+    first = next(loader)
+    deadline = time.monotonic() + 10
+    while len(ds.threads) < 2 * 3 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert len(ds.threads) > 2            # more than one batch built
+    assert "MainThread" not in ds.threads
+    assert set(ds.threads) == {"grain-read-ahead"}
+    rest = [next(loader) for _ in range(4)]
+    loader.close()
+    assert not any(t.name == "grain-read-ahead" and t.is_alive()
+                   for t in threading.enumerate())
+    _same([first] + rest, _take(BatchLoader(SineDataset(cfg), 2, seed=5), 5))
+
+
+def test_in_process_loader_raises_the_readers_error():
+    cfg = DataConfig(length=128, n_speakers=4)
+    loader = GrainBatchLoader(_Recording(cfg, fail_at=4), 2, seed=0,
+                              prefetch=2)
+    next(loader), next(loader)
+    for _ in range(2):   # at the next next(), and at every one after it
+        with pytest.raises(RuntimeError, match="reader failed"):
+            next(loader)
+    loader.close()

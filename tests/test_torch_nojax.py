@@ -37,6 +37,13 @@ def test_port_imports_without_jax():
         "import vqvae_tpu_torch.native.bindings\n"
         "import vqvae_tpu_torch.audio.grain_loader\n"
         "import vqvae_tpu_torch.train.metrics\n"
+        "import vqvae_tpu_torch.parallel, vqvae_tpu_torch.parallel.mesh\n"
+        "import vqvae_tpu_torch.parallel.distributed\n"
+        "import vqvae_tpu_torch.parallel.collectives\n"
+        "import vqvae_tpu_torch.parallel.step\n"
+        "import vqvae_tpu_torch.parallel.sharded_conv\n"
+        "import vqvae_tpu_torch.parallel.sp_decoder\n"
+        "import vqvae_tpu_torch.infer.parallel\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'vqvae_tpu'))\n"
         "print(bad)\n"

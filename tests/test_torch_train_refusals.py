@@ -1,9 +1,12 @@
-"""The port's trainer refuses the settings it does not carry out.
+"""The port's trainer refuses the settings it cannot carry out.
 
-``vqvae-torch-train`` trains on one device; the JAX package's meshes are
-not ported.  A run that asks for one must stop before it writes
-anything, not train on without it.  (TensorBoard and ``--loader grain``
-are ported: tests/test_torch_metrics.py, tests/test_torch_grain_loader.py.)
+``vqvae-torch-train`` trains on a mesh of ranks under ``torchrun``; in
+one process there is one rank, so a mesh larger than that (any mesh
+axis above 1) must stop before the run writes anything, naming the
+setting and how to launch it, not train on without it.  (Meshes are
+tested in tests/test_torch_parallel_*.py; TensorBoard and
+``--loader grain`` in tests/test_torch_metrics.py,
+tests/test_torch_grain_loader.py.)
 """
 
 import dataclasses
@@ -28,7 +31,9 @@ def test_train_refuses_an_unported_setting(tmp_path, setting, value):
     cfg = get_config("tiny")
     cfg = cfg.replace(train=dataclasses.replace(cfg.train, **{setting: value}))
     out = tmp_path / "run"
-    with pytest.raises(ValueError, match=f"train.{setting}"):
+    with pytest.raises(ValueError, match=f"train.{setting}={value} asks for "
+                       "a mesh of 2 ranks, but the world has 1 process: .* "
+                       "torchrun --nproc-per-node 2"):
         train(cfg, SineDataset(cfg.data), out_dir=str(out), num_steps=1,
               device="cpu", echo=False)
     assert not out.exists()

@@ -8,9 +8,11 @@ The input may be ``[T_lat]`` (one stream -> one wav) or ``[B, T_lat]``
 speaker per row or one for all).  ``--gen-impl`` ``lax`` and ``pallas``
 both run the decode kernel (the JAX package's scan has no counterpart
 of its own here), ``lowmem`` decodes chunk by chunk with the same
-waveform.  ``--mesh-data`` (sharded decode) is not ported (ROADMAP A8).
-Runs on the card unless given ``--device cpu``; the last line is the
-kernels' launch counts.
+waveform.  ``--mesh-data N`` splits a batch's rows over N devices of
+the ``--device`` type (``infer/parallel.py``; the same waveform, bit for
+bit); on the card N may not pass the cards there are, on the CPU the N
+shards share it.  Runs on the card unless given ``--device cpu``; the
+last line is the kernels' launch counts.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from vqvae_tpu_torch.cli.common import (
     speaker_ids,
 )
 from vqvae_tpu_torch.infer.fastgen import IMPLS, decode_from_codes
+from vqvae_tpu_torch.infer.parallel import decode_from_codes_sharded
 
 
 def main(argv=None) -> None:
@@ -56,14 +59,16 @@ def main(argv=None) -> None:
                         "condition, the same waveform")
     p.add_argument("--greedy", action="store_true")
     p.add_argument("--mesh-data", type=int, default=0,
-                   help="shard the rows over N devices (not ported: "
-                        "ROADMAP A8)")
+                   help="shard a batched decode's rows over N devices")
     args = p.parse_args(argv)
-    if args.mesh_data:
-        raise SystemExit("--mesh-data: the sharded decode is not ported "
-                         "yet (ROADMAP A8); decode on one device")
 
     device = resolve_device(args.device)
+    if args.mesh_data and device.type == "cuda":
+        have = torch.cuda.device_count()
+        if args.mesh_data > have:
+            raise SystemExit(f"--mesh-data {args.mesh_data}: only {have} "
+                             f"CUDA device{'s' if have > 1 else ''} here "
+                             "(--device cpu splits the rows on the CPU)")
     cfg = resolve_config(args)
     raw = np.load(args.input)
     if raw.ndim not in (1, 2):   # p.error, not assert: python -O
@@ -74,12 +79,22 @@ def main(argv=None) -> None:
     if codes.size and (codes.min() < 0 or codes.max() >= K):
         p.error(f"code ids must be in [0, {K})")
     B = codes.shape[0]
+    if args.mesh_data and B % args.mesh_data:
+        p.error(f"batch {B} must divide over --mesh-data {args.mesh_data}")
     spk = speaker_ids(args.speaker, B, cfg, device)
     params = load_params(args.model, cfg, device)
-    wav = decode_from_codes(params, cfg.model,
-                            torch.from_numpy(codes).to(device), spk,
-                            args.seed, args.temperature, args.greedy,
-                            args.gen_impl).cpu().numpy()
+    codes_t = torch.from_numpy(codes).to(device)
+    if args.mesh_data:
+        devices = ([torch.device("cuda", i) for i in range(args.mesh_data)]
+                   if device.type == "cuda" else [device] * args.mesh_data)
+        wav = decode_from_codes_sharded(
+            params, cfg.model, codes_t, spk, args.seed, devices,
+            args.temperature, args.greedy, args.gen_impl)
+    else:
+        wav = decode_from_codes(params, cfg.model, codes_t, spk, args.seed,
+                                args.temperature, args.greedy,
+                                args.gen_impl)
+    wav = wav.cpu().numpy()
 
     if not batched:
         dest = args.output or "out.wav"
@@ -92,8 +107,10 @@ def main(argv=None) -> None:
         for i, row in enumerate(wav):
             save_wav(os.path.join(outdir, f"{stem}_{i:03d}.wav"), row,
                      cfg.data.sr)
+        shard = (f" over {args.mesh_data} devices" if args.mesh_data
+                 else "")
         print(f"wrote {B} files to {outdir}/: {wav.shape[1]} samples each "
-              f"in one batch-{B} decode")
+              f"in one batch-{B} decode{shard}")
     print_launch_counts()
 
 

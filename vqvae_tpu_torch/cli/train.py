@@ -4,7 +4,13 @@
     vqvae-torch-train --preset vctk-multi --dataset vctk --root VCTK \\
         [--impl pallas] [--bwd-windows N] [--eval-every K] [-r] --out run
 
-trains on one device and writes ``<out>/config.json``,
+trains on one device, or on a mesh of ranks under ``torchrun``:
+
+    torchrun --nproc-per-node N -m vqvae_tpu_torch.cli.train ... \\
+        [--mesh-model M] [--mesh-seq S] [--mesh-slices L]
+
+(data parallelism over the ranks left over; NCCL with a card a rank,
+gloo on the CPU or for ranks that share a card).  It writes ``<out>/config.json``,
 ``<out>/log.jsonl`` (with ``val_*`` rows at ``eval_every``),
 ``<out>/checkpoints/`` (the whole train state, for ``--resume``) and
 ``<out>/weights.npz`` (which ``vqvae-torch-serve -m`` loads).
@@ -18,7 +24,8 @@ worker processes (the same stream as ``threads``), ``--tensorboard``
 adds TensorBoard scalars in ``<out>/tb``, and ``<out>/loss.png`` holds
 the loss curves when matplotlib is installed.  ``--profile N`` traces N
 steps with ``torch.profiler`` into ``<out>/profile`` (a Chrome trace).
-Not ported yet: the mesh flags (ROADMAP A8).
+A mesh larger than the world (``--mesh-model 2`` in one process) is
+refused before anything is written.
 """
 
 from __future__ import annotations
@@ -34,6 +41,8 @@ from vqvae_tpu_torch.cli.common import (
     resolve_config,
     resolve_device,
 )
+from vqvae_tpu_torch.parallel.distributed import initialize_from_env, \
+    shutdown
 
 
 def main(argv=None) -> None:
@@ -47,6 +56,15 @@ def main(argv=None) -> None:
     p.add_argument("--steps", type=int, default=None)
     p.add_argument("--out", default=None, help="output directory")
     p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--mesh-model", type=int, default=None,
+                   help="'model' (tensor-parallel) mesh axis size")
+    p.add_argument("--mesh-slices", type=int, default=None,
+                   help="outer 'slice' mesh axis size (joins the batch "
+                        "axes)")
+    p.add_argument("--mesh-seq", type=int, default=None,
+                   help="sequence-parallel mesh axis size: decoder "
+                        "activations time-sharded with halo exchange "
+                        "(needs max dilation <= length/mesh_seq)")
     p.add_argument("--impl", default="lax", choices=["lax", "pallas"],
                    help="VQ search: float64 plain search (lax) or the "
                         "float32 VQ kernel (pallas)")
@@ -69,10 +87,16 @@ def main(argv=None) -> None:
                    help="torch.profiler-trace N steps to <out>/profile")
     add_device_arg(p)
     args = p.parse_args(argv)
+    device = resolve_device(args.device)
+    # under torchrun: join the world before anything touches the card
+    initialize_from_env(device)
 
     cfg = resolve_config(args)
     tr = {k: v for k, v in (("num_steps", args.steps),
                             ("batch_size", args.batch_size),
+                            ("mesh_model", args.mesh_model),
+                            ("mesh_slices", args.mesh_slices),
+                            ("mesh_seq", args.mesh_seq),
                             ("out_dir", args.out),
                             ("loader", args.loader),
                             ("eval_every", args.eval_every),
@@ -87,12 +111,12 @@ def main(argv=None) -> None:
     if mo:
         cfg = cfg.replace(model=dataclasses.replace(cfg.model, **mo))
     dataset, valid = make_dataset(cfg, args.dataset, args.root)
-    device = resolve_device(args.device)
 
     from vqvae_tpu_torch.train.loop import train
     train(cfg, dataset, out_dir=cfg.train.out_dir, device=device,
           resume=args.resume, impl=args.impl, valid_dataset=valid)
     print_launch_counts()
+    shutdown()
 
 
 if __name__ == "__main__":

@@ -77,8 +77,10 @@
  * Rounding follows _body: h, pe0, z, rs and the skip sum are rounded to
  * the compute dtype; u, cproj and the logits are float32.  Sampling
  * draws Philox4x32-10 with key (seed, 0) and counter
- * (k / 4, b, t_lo, t_hi) at absolute step t, word k % 4, so any split
- * of a stream into resumed launches draws the same noise as one launch.
+ * (k / 4, row0 + b, t_lo, t_hi) at absolute step t, word k % 4, so any
+ * split of a stream into resumed launches draws the same noise as one
+ * launch, and a launch over rows [row0, row0 + B) of a batch (a shard of
+ * a decode split by rows) draws those rows' noise.
  * Every sum runs in a fixed order, so a launch repeats bit for bit.
  *
  * Built by vqvae_tpu_torch/kernels/build.py with
@@ -117,6 +119,7 @@ constexpr int kBars = 7;
 
 struct Shape {
   int B, T, R, S, d, mu, L;
+  int row0;  // the noise's row of batch row 0 (a shard's first global row)
   int dil[kMaxLayers];
   int off[kMaxLayers];
 };
@@ -929,7 +932,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           a.logits_out[((size_t)b * n_steps + s) * mu + j] = logit;
         } else {
           best = mode == kGreedy ? logit
-                                 : logit / temperature + gumbel(seed, j, b, t);
+                                 : logit / temperature +
+                                       gumbel(seed, j, sh.row0 + b, t);
           best_i = j;
         }
       }
@@ -1141,7 +1145,9 @@ int dispatch(int cdtype, int mode, const void* emb_w, const void* emb_b,
 
 // cdtype: 0 = float32, 1 = bfloat16.  mode: 0 teacher-forced logits,
 // 1 greedy ids, 2 Gumbel-max sampled ids.  bufs/pe0/x_last are the
-// decode state, updated in place.  Returns 0, a cudaError_t code, or
+// decode state, updated in place.  row0 (>= 0) is the noise's row of
+// batch row 0: 0 for a whole batch, a shard's first row of it otherwise.
+// Returns 0, a cudaError_t code, or
 // -1 (R, S or mu not a multiple of 16, or past the kernel's limits),
 // -2 (the card cannot schedule one 16-block cluster), -3 (the resident
 // slices do not fit in shared memory).
@@ -1152,9 +1158,9 @@ extern "C" int vqvae_decode(
     const void* cond, const void* gcond, const int* ids_in, int* ids_out,
     float* logits_out, void* bufs, void* pe0, int* x_last, int B, int T,
     int R, int S, int d, int mu, int L, const int* dils, long long t0,
-    unsigned int seed, float temperature, void* stream) {
+    unsigned int seed, float temperature, int row0, void* stream) {
   if (L <= 0 || L > kMaxLayers || B <= 0 || B > 65535 || T < 0 || mode < 0 ||
-      mode > 2)
+      mode > 2 || row0 < 0)
     return (int)cudaErrorInvalidValue;
   if (check_shape(R, S, d, mu, L)) return kErrShape;
   if (T == 0) return 0;
@@ -1166,6 +1172,7 @@ extern "C" int vqvae_decode(
   sh.d = d;
   sh.mu = mu;
   sh.L = L;
+  sh.row0 = row0;
   int acc = 0;
   for (int l = 0; l < L; ++l) {
     if (dils[l] <= 0) return (int)cudaErrorInvalidValue;

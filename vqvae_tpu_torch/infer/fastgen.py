@@ -23,14 +23,15 @@ from vqvae_tpu_torch.models.wavenet import global_cond, make_gen_params
 
 def generate_ids(params, cfg: ModelConfig, cond: torch.Tensor,
                  speaker: torch.Tensor, seed: int = 0,
-                 temperature: float = 1.0, greedy: bool = False
-                 ) -> torch.Tensor:
-    """Sample ``[B, T]`` int32 mu-law ids given cond ``[B, T, d]``."""
+                 temperature: float = 1.0, greedy: bool = False,
+                 row0: int = 0) -> torch.Tensor:
+    """Sample ``[B, T]`` int32 mu-law ids given cond ``[B, T, d]``;
+    ``row0`` is the global row of row 0 (the noise's row)."""
     dec = params["decoder"]
     gp = make_gen_params(dec, cfg)
     gcond = global_cond(dec, cfg, speaker)
     return decode_cuda.generate_ids(gp, cfg, cond, gcond, seed,
-                                    temperature, greedy)
+                                    temperature, greedy, row0)
 
 
 def teacher_forced_scan_logits(params, cfg: ModelConfig,
@@ -56,18 +57,20 @@ IMPLS = ("lax", "pallas", "lowmem")
 def decode_from_codes(params, cfg: ModelConfig, codes: torch.Tensor,
                       speaker: torch.Tensor, seed: int = 0,
                       temperature: float = 1.0, greedy: bool = False,
-                      impl: str = "lax") -> torch.Tensor:
+                      impl: str = "lax", row0: int = 0) -> torch.Tensor:
     """Code ids ``[B, T_lat]`` -> float32 waveform ``[B, T_lat*hop]``.
-    Ids must already be validated (``[0, K)``)."""
+    Ids must already be validated (``[0, K)``).  ``row0``: these are
+    rows ``row0 ..`` of a larger batch, whose sampling noise they take
+    (``infer/parallel.py``)."""
     if impl not in IMPLS:
         raise ValueError(f"unknown decode impl {impl!r} ({', '.join(IMPLS)})")
     if impl == "lowmem":
         from vqvae_tpu_torch.infer.lowmem import decode_from_codes_lowmem
         return decode_from_codes_lowmem(params, cfg, codes, speaker, seed,
-                                        temperature, greedy)
+                                        temperature, greedy, row0=row0)
     cond = CondUpsampler(params, cfg)(codes)
     ids = generate_ids(params, cfg, cond, speaker, seed, temperature,
-                       greedy)
+                       greedy, row0)
     return mu_law_decode(ids, cfg.mu, mode=cfg.mulaw_mode)
 
 

@@ -21,14 +21,16 @@ from vqvae_tpu_torch.infer.streaming import StreamingSynthesizer
 def decode_from_codes_lowmem(params, cfg: ModelConfig, codes: torch.Tensor,
                              speaker: torch.Tensor, seed: int = 0,
                              temperature: float = 1.0, greedy: bool = False,
-                             chunk_samples: int = 1024) -> torch.Tensor:
+                             chunk_samples: int = 1024, row0: int = 0
+                             ) -> torch.Tensor:
     """Code ids ``[B, T_lat]`` -> float32 waveform ``[B, T_lat*hop]``,
-    holding the condition of ``chunk_samples`` samples at a time."""
+    holding the condition of ``chunk_samples`` samples at a time;
+    ``row0`` the global row of row 0."""
     if chunk_samples <= 0 or chunk_samples % cfg.hop:
         raise ValueError(f"chunk_samples {chunk_samples} must be a positive "
                          f"multiple of the hop {cfg.hop}")
     syn = StreamingSynthesizer(params, cfg, speaker, seed, temperature,
-                               greedy)
+                               greedy, row0)
     step = chunk_samples // cfg.hop
     pieces = [syn.push(codes[:, i:i + step])
               for i in range(0, codes.shape[1], step)]

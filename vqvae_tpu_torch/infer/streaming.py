@@ -118,35 +118,39 @@ class StreamingSynthesizer:
     >>> pieces.append(s.flush())
 
     ``speaker`` is ``[B]`` on the parameters' device; codes must be
-    valid ids (``[0, K)``).  Each push returns the float32 waveform
+    valid ids (``[0, K)``); ``row0`` is the global row of row 0 (the
+    sampling noise's row, for a shard of a larger batch).  Each push returns the float32 waveform
     ``[B, m]`` it finalized (``n*hop`` samples for n frames, ``hop//2``
     fewer on the first push); ``flush`` the last ``hop - hop//2``."""
 
     def __init__(self, params, cfg: ModelConfig, speaker: torch.Tensor,
                  seed: int = 0, temperature: float = 1.0,
-                 greedy: bool = False):
+                 greedy: bool = False, row0: int = 0):
         dec = params["decoder"]
         with torch.no_grad():
             self._setup(cfg, make_gen_params(dec, cfg),
                         global_cond(dec, cfg, speaker),
                         CondUpsampler(params, cfg), seed, temperature,
-                        greedy)
+                        greedy, row0)
 
     @classmethod
     def from_parts(cls, cfg: ModelConfig, gp, gcond: torch.Tensor,
                    upsampler: CondUpsampler, seed: int = 0,
-                   temperature: float = 1.0, greedy: bool = False
-                   ) -> "StreamingSynthesizer":
+                   temperature: float = 1.0, greedy: bool = False,
+                   row0: int = 0) -> "StreamingSynthesizer":
         """A stream on weights packed once elsewhere (the serving
         decoder's): ``gp``, ``gcond`` ``[L, B, 2R]`` and a fresh
         upsampler stream."""
         syn = cls.__new__(cls)
-        syn._setup(cfg, gp, gcond, upsampler, seed, temperature, greedy)
+        syn._setup(cfg, gp, gcond, upsampler, seed, temperature, greedy,
+                   row0)
         return syn
 
-    def _setup(self, cfg, gp, gcond, upsampler, seed, temperature, greedy):
+    def _setup(self, cfg, gp, gcond, upsampler, seed, temperature, greedy,
+               row0):
         self.cfg, self.gp, self.gcond, self._ups = cfg, gp, gcond, upsampler
         self.seed, self.temperature, self.greedy = seed, temperature, greedy
+        self.row0 = row0
         self.state = decode_cuda.init_decode_state(
             cfg, gcond.shape[1], gp.wff.dtype, gcond.device)
 
@@ -154,7 +158,7 @@ class StreamingSynthesizer:
         with torch.no_grad():
             ids, self.state = decode_cuda.generate_ids_resume(
                 self.gp, self.cfg, cond, self.gcond, self.seed,
-                self.temperature, self.state, self.greedy)
+                self.temperature, self.state, self.greedy, self.row0)
         return mu_law_decode(ids, self.cfg.mu, mode=self.cfg.mulaw_mode)
 
     def push(self, codes: torch.Tensor) -> torch.Tensor:

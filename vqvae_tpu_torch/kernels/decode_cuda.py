@@ -24,13 +24,16 @@ it costs the cluster to agree once on the card.
 
 Sampling: the noise of class k, row b, absolute step t is word
 ``k % 4`` of Philox4x32-10 with key ``(seed, 0)`` and counter
-``(k // 4, b, t_lo, t_hi)``, turned into ``u = ((w >> 8) + 0.5)·2⁻²⁴``
+``(k // 4, row0 + b, t_lo, t_hi)``, turned into ``u = ((w >> 8) + 0.5)·2⁻²⁴``
 and ``G = -log(-log u)``; the pick is ``argmax(logits/temperature + G)``
 with ties to the lowest index.  Because the noise is indexed by
 absolute step, any split of a stream into resumed calls gives the same
 ids as one call, at any width (the TPU kernel needed CHUNK-aligned
 pushes; this one does not).  The TPU's PRNG has no counterpart here,
 so sampled ids differ from the JAX package's; greedy ids agree.
+``row0`` (default 0) is the global row of a call's row 0: a decode split
+by rows (``infer/parallel.py``) passes each shard's first row, so the
+shards draw the noise of one call over the whole batch.
 """
 
 from __future__ import annotations
@@ -109,13 +112,14 @@ def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
 
 
 def gumbel_noise(seed: int, t0: int, T: int, B: int, mu: int,
-                 device="cpu") -> torch.Tensor:
+                 device="cpu", row0: int = 0) -> torch.Tensor:
     """Gumbel noise ``[T, B, mu]`` float32 for absolute steps
-    ``t0 .. t0+T-1`` (the kernel's stream, see module note)."""
+    ``t0 .. t0+T-1`` and rows ``row0 .. row0+B-1`` (the kernel's
+    stream, see module note)."""
     kw = dict(dtype=torch.int64, device=device)
     n4 = (mu + 3) // 4
     k4 = torch.arange(n4, **kw)[None, None, :]
-    b = torch.arange(B, **kw)[None, :, None]
+    b = torch.arange(row0, row0 + B, **kw)[None, :, None]
     t = torch.arange(t0, t0 + T, **kw)[:, None, None]
     words = philox4x32_10(*torch.broadcast_tensors(k4, b, t & _MASK, t >> 32),
                           seed & _MASK, 0)
@@ -130,14 +134,15 @@ def gumbel_noise(seed: int, t0: int, T: int, B: int, mu: int,
 
 
 def _plain(gp: GenParams, cfg: ModelConfig, mode: int, cond, gcond,
-           seed: int, temperature: float, state: DecodeState, ids_in):
+           seed: int, temperature: float, state: DecodeState, ids_in,
+           row0: int = 0):
     B, T, _ = cond.shape
     cdt = gp.wff.dtype
     f32 = gen_params_f32(gp)
     cond, gcond = cond.to(cdt), gcond.to(cdt)
     gs = GenState(state.t0, state.pe0.clone(), state.bufs.clone())
     x = state.x_last.clone()
-    noise = (gumbel_noise(seed, state.t0, T, B, cfg.mu, cond.device)
+    noise = (gumbel_noise(seed, state.t0, T, B, cfg.mu, cond.device, row0)
              if mode == SAMPLE else None)
     out = []
     for s in range(T):
@@ -187,7 +192,7 @@ def _library():
         lib.vqvae_decode.argtypes = (
             [i, i] + [p] * 18 + [i] * 7
             + [ctypes.POINTER(i), ctypes.c_longlong, ctypes.c_uint,
-               ctypes.c_float, p])
+               ctypes.c_float, i, p])
         lib.vqvae_decode.restype = i
         lib.vqvae_decode_info.argtypes = [i] * 7 + [ctypes.POINTER(i)]
         lib.vqvae_decode_info.restype = i
@@ -257,7 +262,8 @@ def _ptr(x):
 
 
 def _launch(gp: GenParams, cfg: ModelConfig, mode: int, cond, gcond,
-            seed: int, temperature: float, state: DecodeState, ids_in):
+            seed: int, temperature: float, state: DecodeState, ids_in,
+            row0: int = 0):
     global launches
     B, T, d = cond.shape
     R, S, mu, L = (cfg.residual_channels, cfg.skip_channels, cfg.mu,
@@ -312,7 +318,7 @@ def _launch(gp: GenParams, cfg: ModelConfig, mode: int, cond, gcond,
                 gp.head_h1, gp.head_b1, gp.head_h2, gp.head_b2, cond, gcond,
                 ids_in, ids_out, logits_out, bufs, pe0, x_last)),
             B, T, R, S, d, mu, L, dils, state.t0, seed & _MASK,
-            float(temperature), stream)
+            float(temperature), row0, stream)
     _raise_on(err, "decode kernel launch")
     launches += 1
     if mode == TEACHER:
@@ -322,7 +328,9 @@ def _launch(gp: GenParams, cfg: ModelConfig, mode: int, cond, gcond,
 
 def _run(gp: GenParams, cfg: ModelConfig, mode: int, cond, gcond,
          seed: int, temperature: float, state: DecodeState | None,
-         ids_in=None):
+         ids_in=None, row0: int = 0):
+    if row0 < 0:
+        raise ValueError(f"row0 must be >= 0, got {row0}")
     if state is None:
         state = init_decode_state(cfg, cond.shape[0], gp.wff.dtype,
                                   cond.device)
@@ -330,34 +338,35 @@ def _run(gp: GenParams, cfg: ModelConfig, mode: int, cond, gcond,
         raise ValueError(f"temperature must be > 0, got {temperature}")
     if cond.device.type == "cpu":
         return _plain(gp, cfg, mode, cond, gcond, seed, temperature, state,
-                      ids_in)
+                      ids_in, row0)
     if cond.device.type != "cuda":
         raise ValueError(f"no decode kernel for device {cond.device}")
     return _launch(gp, cfg, mode, cond, gcond, seed, temperature, state,
-                   ids_in)
+                   ids_in, row0)
 
 
 def generate_ids(gp: GenParams, cfg: ModelConfig, cond: torch.Tensor,
                  gcond: torch.Tensor, seed: int = 0,
-                 temperature: float = 1.0, greedy: bool = False
-                 ) -> torch.Tensor:
+                 temperature: float = 1.0, greedy: bool = False,
+                 row0: int = 0) -> torch.Tensor:
     """Sample ``[B, T]`` int32 ids.  cond ``[B, T, d]``, gcond
-    ``[L, B, 2R]``, seed a Python int (the Philox key)."""
+    ``[L, B, 2R]``, seed a Python int (the Philox key), ``row0`` the
+    noise's row of row 0."""
     ids, _ = _run(gp, cfg, GREEDY if greedy else SAMPLE, cond, gcond,
-                  seed, temperature, None)
+                  seed, temperature, None, row0=row0)
     return ids
 
 
 def generate_ids_resume(gp: GenParams, cfg: ModelConfig, cond: torch.Tensor,
                         gcond: torch.Tensor, seed: int, temperature: float,
-                        state: DecodeState, greedy: bool = False
-                        ) -> Tuple[torch.Tensor, DecodeState]:
+                        state: DecodeState, greedy: bool = False,
+                        row0: int = 0) -> Tuple[torch.Tensor, DecodeState]:
     """Sample ids for the next T condition samples from ``state``;
     returns (ids ``[B, T]``, the new state).  Any T; the input state is
     left unchanged.  Any split of a stream into calls gives the ids and
     final state of one call, bit for bit."""
     return _run(gp, cfg, GREEDY if greedy else SAMPLE, cond, gcond, seed,
-                temperature, state)
+                temperature, state, row0=row0)
 
 
 def teacher_logits(gp: GenParams, cfg: ModelConfig, ids_in: torch.Tensor,

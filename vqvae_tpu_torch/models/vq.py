@@ -7,6 +7,14 @@ exponential moving averages of ``ema_update`` (van den Oord et al.,
 App. A).  ``restart_dead_codes`` takes its random row picks as an
 argument: the port draws them from a ``torch.Generator``, and tests
 inject the JAX package's ``jax.random`` picks.
+
+On a mesh the updates take ``comm``, the mesh's view of the batch and of
+the codebook's shards (``parallel/step.py::MeshStep``): the per-code
+counts and sums are summed over the ranks that split the batch before
+the decay, each rank keeps the K rows of the EMA state it owns, the
+smoothing's total count is summed over those shards, and the restart's
+candidate rows are taken from the global batch.  ``comm=None`` is one
+device, and no collective runs.
 """
 
 from __future__ import annotations
@@ -88,30 +96,38 @@ def _one_hot(idx: torch.Tensor, K: int) -> torch.Tensor:
 
 @torch.no_grad()
 def ema_update(params, state: VQState, z: torch.Tensor, idx: torch.Tensor,
-               cfg: ModelConfig) -> Tuple[Dict, VQState]:
+               cfg: ModelConfig, comm=None) -> Tuple[Dict, VQState]:
     """One EMA codebook update from a batch of assignments.  The
     per-code sums are a one-hot product, as in the JAX package, so they
-    sum in a fixed order on any device."""
+    sum in a fixed order on any device.  With ``comm`` the state and the
+    codebook are this rank's K shard (see module note)."""
     z = z.detach().reshape(-1, z.shape[-1]).to(torch.float32)
     onehot = _one_hot(idx, cfg.K)
     batch_count = onehot.sum(0)                          # [K]
     batch_sum = onehot.T @ z                             # [K, d]
+    if comm is not None:
+        batch_count = comm.k_slice(comm.batch_sum_(batch_count))
+        batch_sum = comm.k_slice(comm.batch_sum_(batch_sum))
     decay = cfg.ema_decay
     count = state.count * decay + batch_count * (1 - decay)
     total = state.sum * decay + batch_sum * (1 - decay)
     # Laplace-smoothed counts avoid a divide-by-zero on dead codes
     n = count.sum()
+    if comm is not None:
+        n = comm.k_total_(n)
     stable = (count + cfg.ema_eps) / (n + cfg.K * cfg.ema_eps) * n
     codebook = (total / stable[:, None]).to(params["codebook"].dtype)
     return {"codebook": codebook}, VQState(count=count, sum=total)
 
 
 @torch.no_grad()
-def usage_update(state: VQState, idx: torch.Tensor, cfg: ModelConfig
-                 ) -> VQState:
+def usage_update(state: VQState, idx: torch.Tensor, cfg: ModelConfig,
+                 comm=None) -> VQState:
     """Assignment-count EMA without touching the codebook (the
     gradient-trained codebook's usage signal for dead-code restart)."""
     batch_count = _one_hot(idx, cfg.K).sum(0)
+    if comm is not None:
+        batch_count = comm.k_slice(comm.batch_sum_(batch_count))
     count = state.count * cfg.ema_decay + batch_count * (1 - cfg.ema_decay)
     return VQState(count=count, sum=state.sum)
 
@@ -129,14 +145,17 @@ def restart_picks(seed: int, step: int, n_rows: int, K: int,
 
 @torch.no_grad()
 def restart_dead_codes(params, state: VQState, z: torch.Tensor,
-                       picks: torch.Tensor, cfg: ModelConfig
+                       picks: torch.Tensor, cfg: ModelConfig, comm=None
                        ) -> Tuple[Dict, VQState]:
     """Re-seed codebook rows whose EMA usage dropped below
     ``cfg.code_restart_threshold`` with the encoder outputs
-    ``z[picks]`` of the current batch, and reset their EMA stats."""
+    ``z[picks]`` of the current batch, and reset their EMA stats.  With
+    ``comm``, ``picks`` index the rows of the global batch."""
     thr = cfg.code_restart_threshold
     z = z.detach().reshape(-1, z.shape[-1]).to(torch.float32)
-    candidates = z[picks.to(z.device).long()]            # [K, d]
+    picks = picks.to(z.device).long()
+    candidates = (z[picks] if comm is None                # [K, d]
+                  else comm.k_slice(comm.candidates(z, picks)))
     dead = state.count < thr                             # [K]
     cb = params["codebook"]
     codebook = torch.where(dead[:, None], candidates.to(cb.dtype), cb)

@@ -54,28 +54,44 @@ def encode(params, cfg: ModelConfig, wav: torch.Tensor,
     return nearest_code(z, params["vq"]["codebook"].to(z.dtype), impl)
 
 
-def forward(params, cfg: ModelConfig, batch: Batch, impl: str = "lax"
-            ) -> Tuple[torch.Tensor, Tuple[Dict, Dict]]:
+def forward(params, cfg: ModelConfig, batch: Batch, impl: str = "lax",
+            mesh=None) -> Tuple[torch.Tensor, Tuple[Dict, Dict]]:
     """Training forward: (total loss, (metrics, aux)).  Metric names
     follow the reference's reports (loss1/loss2/loss3); ``impl`` picks
-    the VQ search.  The JAX package's sequence-parallel branch is not
-    ported (ROADMAP A8)."""
+    the VQ search.
+
+    ``mesh``: when it has a 'seq' axis of more than one rank, the
+    decoder stack runs sequence-parallel (``parallel/sp_decoder.py``):
+    this rank's time slice of its batch rows, the plain layer loop and
+    plain head, and loss1 over that slice.  The encoder, the VQ and the
+    upsampler run whole on every rank of the axis."""
     z = apply_encoder(params["encoder"], cfg, batch.wav)   # [B, Tl, d] f32
     e_st, e, idx = quantize(params["vq"], z, impl)
     loss2, loss3 = vq_losses(z, e)
     cond = upsample_cond(params["decoder"], cfg, e_st)     # [B, T, d]
-    skips = decoder_skips(params["decoder"], cfg, batch.ids_in, cond,
-                          batch.speaker)
-    if cfg.head_kernel == "pallas":
-        from vqvae_tpu_torch.kernels.head_ce_cuda import head_ce_loss
-        loss1 = head_ce_loss(params["decoder"], cfg, skips, batch.targets)
-    elif cfg.head_kernel == "xla":
-        logits = _head(params["decoder"], cfg, skips)      # [B, T, mu] f32
-        logz = torch.logsumexp(logits, dim=-1)
-        picked = logits.gather(-1, batch.targets.long()[..., None])[..., 0]
-        loss1 = torch.mean(logz - picked)
+    if mesh is not None and "seq" in mesh.mesh_dim_names:
+        from vqvae_tpu_torch.parallel.sp_decoder import apply_decoder_sp, \
+            note_model_axis, time_slice
+        note_model_axis(mesh)
+        logits = apply_decoder_sp(params, cfg, batch.ids_in, cond,
+                                  batch.speaker, mesh, axis="seq")
+        targets = batch.targets[:, time_slice(mesh, batch.ids_in.shape[1],
+                                              "seq")]
+    elif cfg.head_kernel in ("pallas", "xla"):
+        skips = decoder_skips(params["decoder"], cfg, batch.ids_in, cond,
+                              batch.speaker)
+        logits, targets = None, batch.targets
+        if cfg.head_kernel == "pallas":
+            from vqvae_tpu_torch.kernels.head_ce_cuda import head_ce_loss
+            loss1 = head_ce_loss(params["decoder"], cfg, skips, targets)
+        else:
+            logits = _head(params["decoder"], cfg, skips)  # [B, T, mu] f32
     else:
         raise ValueError(f"unknown head_kernel {cfg.head_kernel!r}")
+    if logits is not None:
+        logz = torch.logsumexp(logits, dim=-1)
+        picked = logits.gather(-1, targets.long()[..., None])[..., 0]
+        loss1 = torch.mean(logz - picked)
     if cfg.ema:
         loss = loss1 + cfg.beta * loss3
     else:

@@ -10,6 +10,14 @@ orbax does for the JAX package); the newest ``keep`` are kept.  It
 loads with ``torch.load(weights_only=True)``.  The ``.npz`` keys are
 the JAX package's, so an ``.npz`` written by either side loads into the
 other.
+
+A checkpoint always holds the one-device layout.  On a mesh
+(``state.par``) saving is collective: the sharded Adam moments and EMA
+rows are gathered, rank 0 writes, and every rank waits for the write;
+restoring reads the whole file on every rank and keeps each rank's
+shards, then waits for every rank's read, so no write of a later step
+(and its pruning) can race it.  A run on any mesh resumes on any other,
+and on one device.
 """
 
 from __future__ import annotations
@@ -19,10 +27,12 @@ import re
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vqvae_tpu_torch.convert import nest, to_numpy_tree
 from vqvae_tpu_torch.models.params import ParamTree, flat_state
 from vqvae_tpu_torch.models.vq import VQState
+from vqvae_tpu_torch.parallel.step import barrier
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
 
@@ -42,18 +52,24 @@ def save_checkpoint(directory: str, state, keep: int = 5) -> None:
     """Write ``state`` (a ``train.state.TrainState``) as
     ``step_<step>.pt`` and delete all but the newest ``keep``
     checkpoints."""
-    os.makedirs(directory, exist_ok=True)
-    path = _path(directory, state.step)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save({"step": state.step,
-                "params": {k: v.detach() for k, v in
-                           flat_state(state.params).items()},
-                "opt": state.opt.state_dict(),
-                "vq_state": {"count": state.vq_state.count,
-                             "sum": state.vq_state.sum}}, tmp)
-    os.replace(tmp, path)
-    for step in _steps(directory)[:-max(1, keep)]:
-        os.remove(_path(directory, step))
+    par = state.par
+    opt = state.opt.state_dict() if par is None else \
+        par.full_opt_state(state.opt)
+    vq = state.vq_state if par is None else par.full_vq(state.vq_state)
+    if par is None or dist.get_rank() == 0:
+        os.makedirs(directory, exist_ok=True)
+        path = _path(directory, state.step)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save({"step": state.step,
+                    "params": {k: v.detach() for k, v in
+                               flat_state(state.params).items()},
+                    "opt": opt,
+                    "vq_state": {"count": vq.count, "sum": vq.sum}}, tmp)
+        os.replace(tmp, path)
+        for step in _steps(directory)[:-max(1, keep)]:
+            os.remove(_path(directory, step))
+    if par is not None:
+        barrier(par.mesh)
 
 
 def latest_step(directory: str) -> int | None:
@@ -78,9 +94,18 @@ def restore_checkpoint(directory: str, state, step: int | None = None):
     with torch.no_grad():
         for k, t in params.items():
             t.copy_(ck["params"][k])
-    state.opt.load_state_dict(ck["opt"])
-    state.vq_state = VQState(count=ck["vq_state"]["count"].to(dev),
-                             sum=ck["vq_state"]["sum"].to(dev))
+    vq = VQState(count=ck["vq_state"]["count"].to(dev),
+                 sum=ck["vq_state"]["sum"].to(dev))
+    par = state.par
+    if par is None:
+        state.opt.load_state_dict(ck["opt"])
+        state.vq_state = vq
+    else:
+        state.opt.load_state_dict(par.shard_opt_state(ck["opt"]))
+        state.vq_state = par.shard_vq(vq)
+        # with the shards of the full weights just read
+        par.reload_shards()
+        barrier(par.mesh)
     state.step = int(ck["step"])
     return state
 

@@ -3,7 +3,9 @@
 Validation is a reproducible function of the split, not of a random
 stream: a fixed utterance list (dataset order), one centre crop per
 utterance, iterated in fixed batches.  Two evaluations at different
-steps score exactly the same windows.
+steps score exactly the same windows.  On a mesh each rank scores its
+rows of every batch (and its time slice under 'seq'), and the metrics
+are the global batch's, as the JAX package shards its eval batches.
 """
 
 from __future__ import annotations
@@ -46,10 +48,11 @@ class Evaluator:
     full, so the mean of batch means is the per-window mean)."""
 
     def __init__(self, dataset, cfg: Config, device="cpu",
-                 impl: str = "lax"):
+                 impl: str = "lax", mesh=None):
         self.cfg = cfg
         self.device = torch.device(device)
         self.impl = impl
+        self.mesh = mesh
         self._dataset = dataset
         self._windows = None      # built at first use (decodes the split)
 
@@ -64,18 +67,19 @@ class Evaluator:
         return self._windows
 
     def __call__(self, params) -> dict:
+        from vqvae_tpu_torch.parallel.distributed import put_global_batch
+        from vqvae_tpu_torch.parallel.mesh import batch_sharding
         from vqvae_tpu_torch.train.step import eval_step
         wavs, spks = self._eval_set()
         B = self.cfg.train.batch_size
+        rows = batch_sharding(self.mesh).rows(B)
         n_batches = len(wavs) // B
         acc: dict = {}
         for i in range(n_batches):
-            m = eval_step(params,
-                          torch.from_numpy(wavs[i * B:(i + 1) * B]).to(
-                              self.device),
-                          torch.from_numpy(spks[i * B:(i + 1) * B]).to(
-                              self.device),
-                          self.cfg, self.impl)
+            wav, spk = put_global_batch(
+                self.mesh, wavs[i * B:(i + 1) * B][rows],
+                spks[i * B:(i + 1) * B][rows], device=self.device)
+            m = eval_step(params, wav, spk, self.cfg, self.impl, self.mesh)
             for k, v in m.items():
                 acc[k] = acc.get(k, 0.0) + float(v)
         return {f"val_{k}": v / n_batches for k, v in acc.items()}

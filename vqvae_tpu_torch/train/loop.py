@@ -1,4 +1,4 @@
-"""Training loop on one device (port of ``vqvae_tpu/train/loop.py``).
+"""Training loop (port of ``vqvae_tpu/train/loop.py``).
 
 Per step: the next batch of the deterministic stream (batch ``i`` is a
 pure function of ``(seed, i)``), moved to the device, one
@@ -12,8 +12,17 @@ under either loader (``train.loader``: ``threads`` or ``grain``, one
 stream).  Interval rates are read on the host clock after a
 ``torch.cuda.synchronize()``.  ``train.tensorboard`` adds TensorBoard
 scalars in ``<out>/tb``; the loss curves go to ``<out>/loss.png`` at the
-end.  Meshes wait for ROADMAP A8: a run that asks for one is refused
-before it writes anything.
+end.
+
+Under ``torchrun`` (``parallel/distributed.py::initialize_from_env``)
+the loop runs on every rank: it builds the mesh ``cfg.train.mesh_*``
+over the world, every rank draws the same batch stream and trains on
+its rows (``batch_sharding(mesh).rows``), the step averages and gathers
+over the mesh (``parallel/step.py``), checkpoints are collective, and
+rank 0 alone writes ``config.json``, ``log.jsonl``, TensorBoard,
+``loss.png`` and ``weights.npz``.  A mesh larger than the world (say
+``mesh_model=2`` in a one-process run) is refused before anything is
+written.
 """
 
 from __future__ import annotations
@@ -22,10 +31,17 @@ import os
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from vqvae_tpu_torch.audio.grain_loader import make_loader
 from vqvae_tpu_torch.configs import Config
 from vqvae_tpu_torch.configs.presets import config_to_json
+from vqvae_tpu_torch.parallel.distributed import (
+    put_global_batch,
+    rank_device,
+    warmup_collectives,
+)
+from vqvae_tpu_torch.parallel.mesh import batch_sharding, mesh_from_config
 from vqvae_tpu_torch.train.checkpoint import (
     export_weights,
     latest_step,
@@ -51,40 +67,44 @@ def train(cfg: Config, dataset, out_dir: Optional[str] = None,
     """Run training from the seeded init (or, with ``resume``, from the
     newest checkpoint in ``<out>/checkpoints``); returns the final
     state.  ``impl`` picks the VQ search."""
-    device = torch.device(device)
+    device = rank_device(device)
     out_dir = out_dir or cfg.train.out_dir
     num_steps = cfg.train.num_steps if num_steps is None else num_steps
     if cfg.train.loader not in ("threads", "grain"):
         raise ValueError(f"unknown loader kind: {cfg.train.loader!r}")
-    # settings the one-device trainer would otherwise ignore in silence
-    for name in ("mesh_model", "mesh_seq", "mesh_slices"):
-        if getattr(cfg.train, name) != 1:
-            raise ValueError(f"train.{name}={getattr(cfg.train, name)} is "
-                             "not ported (the port trains on one device)")
-    if cfg.train.mesh_data > 1:
-        raise ValueError(f"train.mesh_data={cfg.train.mesh_data} is not "
-                         "ported (the port trains on one device)")
+    mesh = mesh_from_config(cfg.train, device.type)
+    bsh = batch_sharding(mesh)
+    if cfg.train.batch_size % bsh.count:
+        raise ValueError(
+            f"global batch {cfg.train.batch_size} must divide the "
+            f"batch-sharding axes ({bsh.count} ranks)")
+    rows = bsh.rows(cfg.train.batch_size)
+    lead = mesh is None or dist.get_rank() == 0   # writes the run's files
+    warmup_collectives(mesh)
     ckpt_dir = os.path.join(out_dir, "checkpoints")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "config.json"), "w") as f:
-        f.write(config_to_json(cfg))
-    state = create_train_state(cfg, device)
+    if lead:
+        with open(os.path.join(out_dir, "config.json"), "w") as f:
+            f.write(config_to_json(cfg))
+    state = create_train_state(cfg, device, mesh=mesh)
     if resume and latest_step(ckpt_dir) is not None:
         restore_checkpoint(ckpt_dir, state)
     start = state.step
     evaluator = None
     if valid_dataset is not None and cfg.train.eval_every > 0:
-        evaluator = Evaluator(valid_dataset, cfg, device, impl)
+        evaluator = Evaluator(valid_dataset, cfg, device, impl, mesh)
     # batch i is a pure function of (seed, i) under either loader kind, so
-    # a resumed run sees what a straight run would have
+    # a resumed run sees what a straight run would have, and every rank
+    # draws the same global batch
     loader = make_loader(cfg.train.loader, dataset, cfg.train.batch_size,
                          seed=cfg.train.seed, start_batch=start)
-    logger = MetricsLogger(out_dir, tensorboard=cfg.train.tensorboard)
+    logger = (MetricsLogger(out_dir, tensorboard=cfg.train.tensorboard)
+              if lead else None)
     weights = os.path.join(out_dir, "weights.npz")
     every = cfg.train.checkpoint_every
     # trace steps [prof_at, prof_at + prof): from the tenth step after the
     # start, as the JAX loop does, or earlier if the run ends before that
-    prof = cfg.train.profile_steps
+    prof = cfg.train.profile_steps if lead else 0
     prof_at = start + min(10, max(0, num_steps - start - prof))
     prof_ctx = None
     timer = StepTimer()
@@ -96,9 +116,9 @@ def train(cfg: Config, dataset, out_dir: Optional[str] = None,
                                          device)
                 prof_ctx.__enter__()
             wav, spk = next(loader)
-            metrics = train_step(state, torch.from_numpy(wav).to(device),
-                                 torch.from_numpy(spk).to(device), cfg,
-                                 impl=impl)
+            wav, spk = put_global_batch(mesh, wav[rows], spk[rows],
+                                        device=device)
+            metrics = train_step(state, wav, spk, cfg, impl=impl)
             step = state.step
             if prof_ctx is not None and step == prof_at + prof:
                 prof_ctx.__exit__(None, None, None)
@@ -115,20 +135,29 @@ def train(cfg: Config, dataset, out_dir: Optional[str] = None,
                 timed_to = step
                 if sps is not None:
                     rec["steps_per_sec"] = sps
-                if do_eval:
+                if do_eval:   # collective: every rank evaluates
                     rec.update(evaluator(state.params))
                     timer.reset()
-                logger.log(step, rec, echo)
+                if lead:
+                    logger.log(step, rec, echo)
             if step % every == 0:
-                save_checkpoint(ckpt_dir, state, cfg.train.keep_checkpoints)
-                export_weights(weights, state.params)
+                _save(ckpt_dir, state, cfg, weights, lead)
         if num_steps > start and num_steps % every:
-            save_checkpoint(ckpt_dir, state, cfg.train.keep_checkpoints)
-            export_weights(weights, state.params)
-        logger.plot()
+            _save(ckpt_dir, state, cfg, weights, lead)
+        if lead:
+            logger.plot()
     finally:
         if prof_ctx is not None:
             prof_ctx.__exit__(None, None, None)
         loader.close()
-        logger.close()
+        if logger is not None:
+            logger.close()
     return state
+
+
+def _save(ckpt_dir: str, state: TrainState, cfg: Config, weights: str,
+          lead: bool) -> None:
+    # collective on a mesh; the weights are whole on every rank
+    save_checkpoint(ckpt_dir, state, cfg.train.keep_checkpoints)
+    if lead:
+        export_weights(weights, state.params)
