@@ -41,7 +41,7 @@ nonzero:
              against the plain version over a tenth of it (1600 steps: the
              plain loop takes ~8 ms a step); and at B=1 from the state
              after a first push of 4096 steps (t0 > 0, as in a session),
-             over the next 4096 steps, teacher-forced logits within 3e-2
+             over the next 1024 steps, teacher-forced logits within 3e-2
              of max|logits| of the plain version and the sampled picks
              against the plain pick.  It prints the kernel's cluster
              size, shared memory per block, whether the weight slices are
@@ -99,7 +99,8 @@ nonzero:
              keys in log.jsonl, and its launch counts show the recompute
              (or windowed) backward, the VQ kernel and the embedding's
              take_rows backward launched.
-11. host-data — on that tree with vctk-multi's data config: every file
+11. host-data — on a synthetic VCTK tree of its own with vctk-multi's
+             data config: every file
              decodes through the native library (``vqvae_tpu_torch/
              native``, g++ at first use; ``wav_io.decoders`` counts no
              scipy load), equal to scipy's decode bit for bit (mono
@@ -173,7 +174,36 @@ nonzero:
              ns a layer from the request phase.  Each probe's launches
              come from its timed run (a graph capture counts once per
              captured call, its replays not at all).
+16. mesh    — the parallel layer: a sampled B=4 decode split by rows
+             (``row0``, and over [cuda:0, cuda:0]) equal to the one call;
+             ``torchrun`` worlds of this script's ``--mesh-worker``: an
+             NCCL world of one and two gloo ranks sharing the card (DP 2
+             and model 2 on stretch, seq 2 on vctk-multi) held to one
+             process.
+17. quality — the port's quality check (``vqvae_tpu_torch/quality``):
+             20 tiny steps timed alone (B=16, T=1024, float32, plain
+             stack, EMA codebook with restarts), then ``python3 -m
+             vqvae_tpu_torch.quality.quality_check --steps 6000
+             --batch-size 16 --speaker-matrix --engine lax --engine
+             pallas-stream`` on the card as a subprocess, beside phases 10
+             and 14; its record held to every condition of
+             tests/test_quality.py (``quality_gate``), its launch counts,
+             training wall time and steps a second printed.  On the
+             trained weights (loaded as the daemon loads them) the
+             held-out tone's decode at temperature
+             0.8 from seed 0: lax == pallas and pallas-stream == the
+             daemon's stream engine (``cli/serve.Codec``, 16-frame then
+             1-frame pushes) == lax, bit for bit; the decode kernel at
+             tiny's float32 widths against its plain version (B=1 and
+             B=4, T=640: logits within 1e-4 of max, sampled picks off
+             only at near-ties), timed over the tone and a tenth of it
+             beside the plain loop and its bound; ``make_demo -m <run>``
+             into a temporary directory, whose metrics.json must equal
+             eval_quality's lax numbers (speaker 0, seed 0).
 
+They run in the order 1-9, 12, 13, 15, 17's timing and start, 10 and
+14 beside the quality check, 17's checks, 11, 16: every phase that
+times the card runs alone on it.
 The train-time phases also print each step's share of the bf16 peak by
 ``utils/flops.py::train_step_flops``.  Then one JSON line of per-kernel results and, last, the device line.
 """
@@ -201,7 +231,10 @@ PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
 T_CHECK = 640
 TEMP = 0.9
 FIRST_PUSH = 4096   # steps before the resumed check of the request phase
-RESUMED = 4096      # steps the resumed check holds (plain loop: ~8 ms each)
+RESUMED = 1024      # steps the resumed check holds (plain loop: ~8 ms each)
+QUALITY_STEPS = 6000  # the converged point tests/test_quality.py gates
+QUALITY_BATCH = 16
+QUALITY_ENGINES = ("lax", "pallas-stream")
 
 
 def say(phase, t0, msg):
@@ -627,18 +660,20 @@ def bound(flops, nbytes, peak=PEAK_FLOPS):
                                        else "bytes")
 
 
-def decode_work(cfg, B, T):
+def decode_work(cfg, B, T, es=2):
     """(flops, bytes) of the decode loop for B rows x T steps: each
-    step's products (30 layers of [past|h]@wff and z@[wr|ws], the
+    step's products (the layers' [past|h]@wff and z@[wr|ws], the
     condition projection of every layer, the head) and, once, the
-    weights, the condition and the output ids (bf16)."""
+    weights, the condition and the output ids (``es`` bytes an element:
+    2 for bf16, 4 for float32)."""
     R, S, d, mu, L = (cfg.residual_channels, cfg.skip_channels, cfg.d,
                       cfg.mu, cfg.n_layers_total)
     flops = 2 * B * T * (L * (2 * R * 2 * R + R * (R + S)) + d * L * 2 * R
                          + S * S + S * mu)
-    weights = 2 * (L * (4 * R * R + R * (R + S) + R + S) + d * L * 2 * R
-                   + 2 * mu * R + S * S + S) + 4 * (S * mu + mu)
-    nbytes = weights + 2 * B * T * d + 4 * B * T + 2 * sum(cfg.dilations) * R
+    weights = es * (L * (4 * R * R + R * (R + S) + R + S) + d * L * 2 * R
+                    + 2 * mu * R + S * S + S) + 4 * (S * mu + mu)
+    nbytes = (weights + es * B * T * d + 4 * B * T
+              + es * sum(cfg.dilations) * R)
     return flops, nbytes
 
 
@@ -1332,9 +1367,11 @@ def train_vctk(tree, out, steps, *extra):
 
 def train_cli_vctk_phase():
     """vctk-multi through the CLI on a synthetic VCTK tree: a straight
-    4-step run, 2 steps plus a resume to 4 (equal weights), and 2 steps
-    of the windowed backward.  Returns (counts of the straight run,
-    counts of the windowed run)."""
+    4-step run, 2 steps plus a resume to 4 (equal weights), 2 steps of
+    the windowed backward and 2 with ``--loader grain --tensorboard``,
+    the four side by side (independent processes; their checks hold
+    values, not times).  Returns (counts of the straight run, counts of
+    the windowed run)."""
     t0 = time.monotonic()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_vctk_",
@@ -1342,21 +1379,31 @@ def train_cli_vctk_phase():
     try:
         tree = os.path.join(work, "VCTK")
         write_vctk_tree(tree)
-        a, b, c = (os.path.join(work, x) for x in ("straight", "resumed",
-                                                    "windowed"))
-        counts, recs = train_vctk(tree, a, 4)
+        a, b, c, g = (os.path.join(work, x) for x in ("straight", "resumed",
+                                                       "windowed", "grain"))
+
+        def resumed():
+            train_vctk(tree, b, 2)
+            return train_vctk(tree, b, 4, "--resume")
+        with ThreadPoolExecutor(max_workers=4) as pool:
+            runs = [pool.submit(train_vctk, tree, a, 4), pool.submit(resumed),
+                    pool.submit(train_vctk, tree, c, 2, "--bwd-windows", "4"),
+                    pool.submit(train_vctk, tree, g, 2, "--loader", "grain",
+                                "--tensorboard")]
+            (counts, recs), (rcounts, rrecs), (wcounts, wrecs), grain = (
+                f.result() for f in runs)
+        say("train-cli-vctk", t0, "5 trainer processes, 4 side by side "
+            "(straight; 2 then --resume; --bwd-windows 4; --loader grain "
+            "--tensorboard): exit 0")
         path = ("chunk_fwd", "chunk_bwd_rec", "vq_argmin", "take_rows_bwd")
         check(all(counts[k] > 0 for k in path) and counts["chunk_bwd"] == 0
               and counts["chunk_bwd_win"] == 0,
               f"vctk-multi did not run the recompute path: {counts}")
         say("train-cli-vctk", t0, f"vctk-multi --dataset vctk --impl pallas,"
-            f" 4 steps: exit 0; step 1 loss1 {recs[0]['loss1']:.4f} loss2 "
+            f" 4 steps: step 1 loss1 {recs[0]['loss1']:.4f} loss2 "
             f"{recs[0]['loss2']:.4f}; val_loss1 at steps "
             f"{[r['iteration'] for r in recs if 'val_loss1' in r]}; "
             f"launches {counts}")
-        t0 = time.monotonic()
-        train_vctk(tree, b, 2)
-        rcounts, rrecs = train_vctk(tree, b, 4, "--resume")
         check([r["iteration"] for r in rrecs][-1] == 4 and
               rcounts["chunk_bwd_rec"] > 0, f"the resume did not reach step "
               f"4 through the recompute path: {rcounts}")
@@ -1374,29 +1421,26 @@ def train_cli_vctk_phase():
         say("train-cli-vctk", t0, f"2 steps + --resume to 4 == 4 straight "
             f"steps (weights.npz max |d| {worst:.3g}, rtol 1e-6); resumed "
             f"run's launches {rcounts}")
-        t0 = time.monotonic()
-        wcounts, wrecs = train_vctk(tree, c, 2, "--bwd-windows", "4")
         check(wcounts["chunk_bwd_win"] > 0 and wcounts["vq_argmin"] > 0
               and wcounts["take_rows_bwd"] > 0,
               f"--bwd-windows 4 did not run the windowed backward: {wcounts}")
-        say("train-cli-vctk", t0, f"--bwd-windows 4, 2 steps: exit 0; step 1"
+        say("train-cli-vctk", t0, f"--bwd-windows 4, 2 steps: step 1"
             f" loss1 {wrecs[0]['loss1']:.4f}; launches {wcounts}")
-        grain_tb_run(tree, os.path.join(work, "grain"), recs)
-        host_data_phase(tree)
+        grain_tb_check(g, grain, recs)
         return counts, wcounts
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
 
-def grain_tb_run(tree, out, straight):
-    """2 steps with ``--loader grain --tensorboard``: the recompute path,
-    the straight run's step 1 and 2 losses (rtol 1e-6: the loader is the
-    only difference), and one event file in <out>/tb whose (tag, step,
-    value) triples equal log.jsonl's, read by the port's own reader."""
+def grain_tb_check(out, run, straight):
+    """The 2-step ``--loader grain --tensorboard`` run in ``out`` (its
+    ``train_vctk`` result ``run``): the recompute path, the straight
+    run's step 1 and 2 losses (rtol 1e-6: the loader is the only
+    difference), and one event file in <out>/tb whose (tag, step, value)
+    triples equal log.jsonl's, read by the port's own reader."""
     from vqvae_tpu_torch.train.metrics import read_events
     t0 = time.monotonic()
-    gcounts, grecs = train_vctk(tree, out, 2, "--loader", "grain",
-                                "--tensorboard")
+    gcounts, grecs = run
     path = ("chunk_fwd", "chunk_bwd_rec", "vq_argmin", "take_rows_bwd")
     check(all(gcounts[k] > 0 for k in path),
           f"--loader grain did not run the recompute path: {gcounts}")
@@ -1429,7 +1473,20 @@ def grain_tb_run(tree, out, straight):
         f"{files[0]} == log.jsonl; launches {gcounts}")
 
 
-def host_data_phase(tree):
+def host_data_phase():
+    """``host_data`` on a synthetic VCTK tree of its own under build/."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_host_",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        tree = os.path.join(work, "VCTK")
+        write_vctk_tree(tree)
+        host_data(tree)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def host_data(tree):
     """The host side on the synthetic VCTK tree with vctk-multi's data
     config: the native decoder serves every load (no scipy load) and
     equals scipy bit for bit (mono int16); GrainBatchLoader with 2 worker
@@ -1909,92 +1966,113 @@ def cli_codec_phase(device):
 
         t0 = time.monotonic()
         npz = p("exported.npz")
-        add(run_cli("export", "-m", p("run"), "-o", npz)[0])
-        with np.load(npz) as a, np.load(p("run", "weights.npz")) as b:
-            check(set(a.files) == set(b.files) and all(
-                np.array_equal(a[k], b[k]) for k in a.files),
-                "the exported .npz differs from the run's weights.npz")
         n = 3 * sr
         t = np.arange(n) / sr
         x = 0.4 * np.sin(2 * np.pi * 180 * t) * (1 + 0.5 * np.sin(
             2 * np.pi * 1.3 * t)) + 0.05 * np.random.default_rng(
                 6).standard_normal(n)
-        wav_in = p("in.wav")
+        wav_in, one_s = p("in.wav"), p("one_s.wav")
         wavfile.write(wav_in, sr, (np.clip(x, -1, 1) * 32767).astype(
             np.int16))
-        base = ["--preset", PRESET, "-m", npz]
-        codes = {}
-        for kernel in ("xla", "pallas"):
-            out = p(f"codes_{kernel}.npy")
-            add(run_cli("encode", *base, "-i", wav_in, "-o", out, "--no-trim",
-                        "--set", f"model.encoder_kernel={kernel}")[0])
-            codes[kernel] = np.load(out)
-        # frames whose two best scores differ by more than 1e-4 of the
-        # largest must get the same code from both encoders
-        params = load_params(npz, cfg, device)
-        w = load_wav(wav_in, sr)
-        xw = mu_law_round_trip(torch.from_numpy(w[:n // hop * hop])[None],
-                               cfg.model.mu, cfg.model.mulaw_mode)
-        with torch.no_grad():
-            z = apply_encoder(params.encoder, cfg.model,
-                              xw.to(device)).double()[0]
-            check(np.array_equal(encode_to_codes(params, cfg.model, xw.to(
-                device))[0].cpu().numpy(), codes["xla"]),
-                "the encode CLI's codes differ from encode_to_codes")
-        cb = params.vq.codebook.double()
-        sc = 2 * z @ cb.T - (cb * cb).sum(-1)
-        top = sc.topk(2, -1).values
-        clear = ((top[:, 0] - top[:, 1]) > 1e-4 * float(sc.abs().max())
-                 ).cpu().numpy()
-        same = codes["xla"] == codes["pallas"]
-        check(bool(same[clear].all()), f"encode with the switch differs from "
-              f"without on {int((~same & clear).sum())} clear frames")
-        say("cli-codec", t0, f"export == the run's weights.npz; encode of a "
-            f"3 s wav: {len(codes['xla'])} frames, the switch's codes equal "
-            f"on all {int(clear.sum())} frames clear of the margin "
-            f"({int((~same).sum())} differ in all)")
-        del params
-
-        t0 = time.monotonic()
-        cpath = p("codes_pallas.npy")
-        outs = {}
-        for mode, extra in (("greedy", ["--greedy"]),
-                            ("sampled", ["--temperature", str(TEMP)])):
-            common = [*base, "-s", "3", "--seed", "7", *extra]
-            add(run_cli("decode", *common, "-i", cpath, "-o",
-                        p(f"dec_{mode}.wav"))[0])
-            c, out = run_cli("stream", *common, "-i", cpath, "-o",
-                             p(f"str_{mode}.wav"), "--chunk-frames", "16")
-            add(c)
-            a = wavfile.read(p(f"dec_{mode}.wav"))[1]
-            b = wavfile.read(p(f"str_{mode}.wav"))[1]
-            check(a.shape == (len(codes["pallas"]) * hop,) and
-                  np.array_equal(a, b), f"{mode}: stream != decode")
-            outs[mode] = a
-            pushes = [float(ln.split(" in ")[1].split(" ms")[0])
-                      for ln in out.splitlines() if ln.startswith("chunk ")]
-        add(run_cli("decode", *base, "-s", "3", "--seed", "7",
-                    "--temperature", str(TEMP), "-i", cpath, "-o",
-                    p("low.wav"), "--gen-impl", "lowmem")[0])
-        check(np.array_equal(wavfile.read(p("low.wav"))[1], outs["sampled"]),
-              "--gen-impl lowmem != one-shot decode")
-        say("cli-codec", t0, f"decode == stream ({len(pushes)} pushes of 16 "
-            f"frames, median {sorted(pushes)[len(pushes) // 2]:.1f} ms a "
-            f"push), greedy and sampled; lowmem == one-shot (sampled); "
-            f"bit for bit")
-
-        t0 = time.monotonic()
-        one_s = p("one_s.wav")
         wavfile.write(one_s, sr, (np.clip(x[:sr], -1, 1) * 32767).astype(
             np.int16))
-        add(run_cli("generate", *base, "-i", one_s, "-o", p("gen.wav"),
-                    "-s", "3", "--no-trim", "--set",
-                    "model.encoder_kernel=pallas")[0])
-        g = wavfile.read(p("gen.wav"))[1]
-        check(g.shape == (sr // hop * hop,), f"generate: length {g.shape}")
-        c, out = run_cli("score", "-m", p("run"), "--dataset", "vctk",
-                         "--root", tree, "--json")
-        add(c)
+        base = ["--preset", PRESET, "-m", npz]
+        # the CLIs run as independent processes, side by side on the card
+        # wherever one does not need another's output
+        pool = ThreadPoolExecutor(max_workers=8)
+        try:
+            score = pool.submit(run_cli, "score", "-m", p("run"),
+                                "--dataset", "vctk", "--root", tree,
+                                "--json")
+            add(run_cli("export", "-m", p("run"), "-o", npz)[0])
+            with np.load(npz) as a, np.load(p("run", "weights.npz")) as b:
+                check(set(a.files) == set(b.files) and all(
+                    np.array_equal(a[k], b[k]) for k in a.files),
+                    "the exported .npz differs from the run's weights.npz")
+            gen = pool.submit(run_cli, "generate", *base, "-i", one_s, "-o",
+                              p("gen.wav"), "-s", "3", "--no-trim", "--set",
+                              "model.encoder_kernel=pallas")
+            enc = {kernel: pool.submit(
+                run_cli, "encode", *base, "-i", wav_in, "-o",
+                p(f"codes_{kernel}.npy"), "--no-trim", "--set",
+                f"model.encoder_kernel={kernel}")
+                for kernel in ("xla", "pallas")}
+            codes = {}
+            for kernel, f in enc.items():
+                add(f.result()[0])
+                codes[kernel] = np.load(p(f"codes_{kernel}.npy"))
+            cpath = p("codes_pallas.npy")
+            runs = {}
+            for mode, extra in (("greedy", ["--greedy"]),
+                                ("sampled", ["--temperature", str(TEMP)])):
+                common = [*base, "-s", "3", "--seed", "7", *extra]
+                runs[("decode", mode)] = pool.submit(
+                    run_cli, "decode", *common, "-i", cpath, "-o",
+                    p(f"dec_{mode}.wav"))
+                runs[("stream", mode)] = pool.submit(
+                    run_cli, "stream", *common, "-i", cpath, "-o",
+                    p(f"str_{mode}.wav"), "--chunk-frames", "16")
+            runs[("lowmem", "sampled")] = pool.submit(
+                run_cli, "decode", *base, "-s", "3", "--seed", "7",
+                "--temperature", str(TEMP), "-i", cpath, "-o", p("low.wav"),
+                "--gen-impl", "lowmem")
+            # frames whose two best scores differ by more than 1e-4 of the
+            # largest must get the same code from both encoders
+            params = load_params(npz, cfg, device)
+            w = load_wav(wav_in, sr)
+            xw = mu_law_round_trip(torch.from_numpy(w[:n // hop * hop])[None],
+                                   cfg.model.mu, cfg.model.mulaw_mode)
+            with torch.no_grad():
+                z = apply_encoder(params.encoder, cfg.model,
+                                  xw.to(device)).double()[0]
+                check(np.array_equal(encode_to_codes(
+                    params, cfg.model, xw.to(device))[0].cpu().numpy(),
+                    codes["xla"]),
+                    "the encode CLI's codes differ from encode_to_codes")
+            cb = params.vq.codebook.double()
+            sc = 2 * z @ cb.T - (cb * cb).sum(-1)
+            top = sc.topk(2, -1).values
+            clear = ((top[:, 0] - top[:, 1]) > 1e-4 * float(sc.abs().max())
+                     ).cpu().numpy()
+            same = codes["xla"] == codes["pallas"]
+            check(bool(same[clear].all()), f"encode with the switch differs "
+                  f"from without on {int((~same & clear).sum())} clear "
+                  "frames")
+            say("cli-codec", t0, f"export == the run's weights.npz; encode of"
+                f" a 3 s wav: {len(codes['xla'])} frames, the switch's codes "
+                f"equal on all {int(clear.sum())} frames clear of the margin "
+                f"({int((~same).sum())} differ in all)")
+            del params
+
+            t0 = time.monotonic()
+            outs = {key: f.result() for key, f in runs.items()}
+            for key, (c, _) in outs.items():
+                add(c)
+            for mode in ("greedy", "sampled"):
+                a = wavfile.read(p(f"dec_{mode}.wav"))[1]
+                b = wavfile.read(p(f"str_{mode}.wav"))[1]
+                check(a.shape == (len(codes["pallas"]) * hop,) and
+                      np.array_equal(a, b), f"{mode}: stream != decode")
+            pushes = [float(ln.split(" in ")[1].split(" ms")[0])
+                      for ln in outs[("stream", "sampled")][1].splitlines()
+                      if ln.startswith("chunk ")]
+            check(np.array_equal(wavfile.read(p("low.wav"))[1],
+                                 wavfile.read(p("dec_sampled.wav"))[1]),
+                  "--gen-impl lowmem != one-shot decode")
+            say("cli-codec", t0, f"decode == stream ({len(pushes)} pushes "
+                f"of 16 frames, median "
+                f"{sorted(pushes)[len(pushes) // 2]:.1f} ms a push beside 4 "
+                "other decode CLIs and the quality check), greedy and "
+                "sampled; lowmem == one-shot (sampled); bit for bit")
+
+            t0 = time.monotonic()
+            add(gen.result()[0])
+            g = wavfile.read(p("gen.wav"))[1]
+            check(g.shape == (sr // hop * hop,), f"generate: length {g.shape}")
+            c, out = score.result()
+            add(c)
+        finally:
+            pool.shutdown(wait=True)
         rec = json.loads([ln for ln in out.splitlines()
                           if ln.startswith("{")][-1])
         check(np.isfinite(rec["val_loss1"]), f"score: {rec}")
@@ -2511,6 +2589,225 @@ def mesh_phase(device, smi):
         f"bytes a step a rank; {smi}")
 
 
+def quality_start(device, smi):
+    """Phase "quality", first half: 20 tiny steps timed in this process
+    (nothing else running), then ``python3 -m vqvae_tpu_torch.quality.
+    quality_check --steps QUALITY_STEPS ...`` started as a user runs it,
+    its run directory under a work directory of build/ (its TMPDIR).
+    Returns (process, work directory, start time)."""
+    import torch
+    from vqvae_tpu_torch.audio.datasets import SineDataset
+    from vqvae_tpu_torch.audio.loader import BatchLoader
+    from vqvae_tpu_torch.quality import quality_check as qc
+    from vqvae_tpu_torch.train.state import create_train_state
+    from vqvae_tpu_torch.train.step import train_step
+    t0 = time.monotonic()
+    say("quality", t0, smi)
+    B = QUALITY_BATCH
+    cfg = qc.tiny_config(QUALITY_STEPS, B)
+    loader = BatchLoader(SineDataset(cfg.data), B, seed=0)
+    batches = [tuple(torch.from_numpy(a).to(device) for a in next(loader))
+               for _ in range(22)]
+    loader.close()
+    state = create_train_state(cfg, device)
+    for wav, spk in batches[:2]:
+        train_step(state, wav, spk, cfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for wav, spk in batches[2:]:
+        m = train_step(state, wav, spk, cfg)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t1) / 20
+    check(np.isfinite(float(m["loss"])), "tiny: non-finite loss")
+    say("quality", t0, f"tiny B={B} T={cfg.data.length} "
+        f"{cfg.model.compute_dtype} (plain stack, EMA codebook, restarts): "
+        f"{step_ms:.2f} ms a step over 20 steps after 2 ({1e3 / step_ms:.1f}"
+        f" steps a second), alone on the card; {smi}")
+    del state, batches
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_quality_",
+                            dir=os.path.join(ROOT, "build"))
+    cmd = [sys.executable, "-m", "vqvae_tpu_torch.quality.quality_check",
+           "--steps", str(QUALITY_STEPS), "--batch-size", str(B),
+           "--speaker-matrix", "--device", str(device)]
+    for e in QUALITY_ENGINES:
+        cmd += ["--engine", e]
+    with open(os.path.join(work, "stdout"), "w") as out, \
+            open(os.path.join(work, "stderr"), "w") as err:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=err,
+                                env={**os.environ, "TMPDIR": work})
+    say("quality", t0, f"started {' '.join(cmd[1:])}; phases train-cli-vctk "
+        "and cli-codec run beside it (their checks hold values, not times)")
+    return proc, work, time.monotonic()
+
+
+def quality_finish(started, device, smi):
+    """Phase "quality", second half: the quality check's record held to
+    the gate of tests/test_quality.py; on the trained weights lax ==
+    pallas and pallas-stream == the daemon's stream engine bit for bit;
+    the decode kernel at tiny's float32 widths against its plain version
+    and timed; the demo from the run's directory.  Returns the decode
+    kernel's kernels-line entry at these widths.  The caller stops the
+    process and removes the work directory."""
+    import torch
+    from vqvae_tpu_torch.cli.common import load_params
+    from vqvae_tpu_torch.cli.serve import Codec
+    from vqvae_tpu_torch.infer.streaming import CondUpsampler
+    from vqvae_tpu_torch.kernels import decode_cuda as dc
+    from vqvae_tpu_torch.models.wavenet import global_cond, make_gen_params
+    from vqvae_tpu_torch.quality import make_demo
+    from vqvae_tpu_torch.quality import quality_check as qc
+    proc, work, t_start = started
+    t0 = time.monotonic()
+    try:
+        rc = proc.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "killed after 900 s"
+    wall = time.monotonic() - t_start
+    with open(os.path.join(work, "stdout")) as f:
+        out = f.read().splitlines()
+    with open(os.path.join(work, "stderr")) as f:
+        err = f.read()
+    if rc != 0 or len(out) < 2:
+        print("\n".join(out[-20:]), err[-4000:], flush=True)
+        fail(f"the quality check exited with {rc}")
+    rec = json.loads(out[-2])
+    launched = json.loads(out[-1].split(": ", 1)[1])["decode"]
+    run = re.search(r"run directory: (\S+)", err).group(1)
+    print(json.dumps(rec), flush=True)
+    with open(os.path.join(run, "log.jsonl")) as f:
+        rows = [json.loads(ln) for ln in f]
+    # each row's elapsed: wall time since the previous log row (the
+    # first: since the logger opened, before step 1)
+    train_s = sum(r["elapsed"] for r in rows)
+    say("quality", t0, f"quality_check --steps {QUALITY_STEPS} "
+        f"--batch-size {QUALITY_BATCH} --speaker-matrix on {device}: "
+        f"{wall:.1f} s from its start, of which training {train_s:.1f} "
+        f"s ({QUALITY_STEPS / train_s:.2f} steps a second, beside the "
+        f"CLI phases), final loss1 {rec['final_loss1']}, codebook usage "
+        f"{rec['train_codebook_usage']}; decode kernel launches "
+        f"{launched}; {smi}")
+    check(launched > 0, "the quality check launched no decode kernel")
+    failed = qc.quality_gate(rec)
+    check(not failed, "quality gate (tests/test_quality.py): "
+          + "; ".join(failed))
+    m = rec["speaker_matrix"]
+    say("quality", t0, "gate met: band correlation "
+        + ", ".join(f"{e} {rec['engines'][e]['band_spectral_correlation']}"
+                    for e in QUALITY_ENGINES) + "; harmonic ratio "
+        + ", ".join(f"{e} {rec['engines'][e]['harmonic_energy_ratio']}"
+                    for e in QUALITY_ENGINES)
+        + f"; matrix ({m['engine']}) diag {m['diag_mean']}, off-diagonal "
+        f"{m['offdiag_mean']}, target off-diagonal "
+        f"{m['target_offdiag_mean']}")
+
+    # the trained weights as the daemon and the demo load them
+    t0 = time.monotonic()
+    cfg = qc.tiny_config(QUALITY_STEPS, QUALITY_BATCH)
+    mc = cfg.model
+    params = load_params(run, cfg, device)
+    codes = qc._encode(params, cfg, qc._held_out_tone(cfg.data.sr,
+                                                      110.0))
+    outs = {e: qc._decode(params, cfg, codes, [0], 0, 0.8, e)
+            for e in qc.ENGINES}
+    codec = Codec(params, cfg, chunk=16, engine="stream",
+                  device=str(device))
+    outs["stream"] = codec.decode(codes[0], 0, 0, 0.8)[None]
+    check(np.array_equal(outs["lax"], outs["pallas"]),
+          "quality: lax != pallas on the held-out tone")
+    check(np.array_equal(outs["pallas-stream"], outs["stream"]),
+          "quality: pallas-stream != the daemon's stream engine")
+    check(np.array_equal(outs["lax"], outs["stream"]),
+          "quality: the one-shot and served decodes differ")
+    say("quality", t0, f"held-out tone ({codes.shape[1]} codes, seed 0, "
+        "temperature 0.8): lax == pallas, pallas-stream == the stream "
+        "engine (16-frame then 1-frame pushes) == lax, bit for bit")
+
+    # the decode kernel at the quality path's widths and rows
+    t0 = time.monotonic()
+    with torch.no_grad():
+        gp = make_gen_params(params.decoder, mc)
+        cond1 = CondUpsampler(params, mc)(torch.from_numpy(codes).to(
+            device))
+        T = cond1.shape[1]
+        worst = 0.0
+        for Bq in (1, mc.n_speakers):
+            cond = cond1[:, :T_CHECK].expand(Bq, -1, -1).contiguous()
+            gcond = global_cond(params.decoder, mc,
+                                torch.arange(Bq, device=device))
+            st0 = dc.init_decode_state(mc, Bq, gp.wff.dtype, device)
+            got = dc.generate_ids(gp, mc, cond, gcond, 3, TEMP)
+            x_in = torch.cat([torch.full((Bq, 1), mc.mu // 2,
+                                         dtype=torch.int32,
+                                         device=device), got[:, :-1]], 1)
+            lk = dc.teacher_logits(gp, mc, x_in, cond, gcond)
+            lp = dc._plain(gp, mc, dc.TEACHER, cond, gcond, 0, 1.0, st0,
+                           x_in)[0]
+            scale = float(lp.abs().max())
+            err = float((lk - lp).abs().max())
+            check(bool(torch.isfinite(lk).all()) and err <= 1e-4 * scale,
+                  f"tiny B={Bq}: teacher logits off by {err} "
+                  f"(max|logits| {scale}, tol 1e-4)")
+            worst = max(worst, err)
+            n_bad, n_far = pick_mismatches(dc, lp, got, False, 3, 0,
+                                           2e-4 * scale / TEMP)
+            check(n_far == 0, f"tiny B={Bq}: {n_far} sampled kernel picks "
+                  "differ from the plain pick away from a near-tie")
+            say("quality", t0, f"decode kernel, tiny float32 B={Bq} "
+                f"T={T_CHECK}: logits max|d| {err:.3g} <= 1e-4*max|logits|"
+                f" = {1e-4 * scale:.3g}; sampled near-tie mismatches "
+                f"{n_bad}/{Bq * T_CHECK}")
+        gcond = global_cond(params.decoder, mc,
+                            torch.zeros(1, dtype=torch.long,
+                                        device=device))
+        st0 = dc.init_decode_state(mc, 1, gp.wff.dtype, device)
+        ms = cuda_ms(lambda: dc.generate_ids_resume(gp, mc, cond1, gcond,
+                                                    0, 0.8, st0))
+        T10 = T // 10
+        ms10 = cuda_ms(lambda: dc.generate_ids_resume(
+            gp, mc, cond1[:, :T10], gcond, 0, 0.8, st0))
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        dc._plain(gp, mc, dc.SAMPLE, cond1[:, :T10], gcond, 0, 0.8, st0,
+                  None)
+        e1.record()
+        torch.cuda.synchronize()
+        plain10 = e0.elapsed_time(e1)
+    info = dc.cluster_info(mc, gp.wff.dtype)
+    where = ("resident" if info["resident"] else "read through L1/L2")
+    bms, bby = bound(*decode_work(mc, 1, T10, es=4), peak=PEAK_F32)
+    say("quality", t0, f"decode kernel, tiny float32 B=1: {ms:.2f} ms "
+        f"for the held-out tone's {T} steps ({1e3 * ms / T:.2f} us a "
+        f"step); over its first {T10} kernel {ms10:.2f} ms, plain "
+        f"{plain10:.1f} ms, bound {bms:.5f} ms ({bby}); cluster of "
+        f"{info['cluster']} blocks, {info['smem_bytes']} B shared memory"
+        f" a block, weights {where}; {smi}")
+
+    t0 = time.monotonic()
+    demo = os.path.join(work, "demo")
+    make_demo.main(["-m", run, "-o", demo, "--device", str(device)])
+    with open(os.path.join(demo, "metrics.json")) as f:
+        metrics = json.load(f)
+    lax = rec["engines"]["lax"]
+    keys = ("band_spectral_correlation", "harmonic_energy_ratio",
+            "harmonic_energy_ratio_ceiling")
+    check(all(metrics[k] == lax[k] for k in keys),
+          f"make_demo's metrics {metrics} != eval_quality's {lax}")
+    wavs = {"input.wav", "mulaw_ceiling.wav", "reconstruction.wav"}
+    check(wavs <= set(metrics["files"]),
+          f"make_demo wrote {metrics['files']}")
+    say("quality", t0, f"make_demo -m <run>: {metrics['files']}, "
+        f"metrics == eval_quality's (lax, speaker 0, seed 0)")
+    return {"name": "decode_tiny", "route": "cuda",
+            "source": "vqvae_tpu_torch/csrc/decode.cu",
+            "replaces": "vqvae_tpu/kernels/decode_pallas.py:354",
+            "launches": launched, "max_abs_err": worst, "ms": ms10,
+            "plain_ms": plain10, "bound_ms": bms, "bound_by": bby,
+            "library_ms": None}
+
+
 def main():
     t0 = time.monotonic()
     smi = nvidia_smi()
@@ -2587,15 +2884,28 @@ def main():
     errs = train_kernel_phase(train_cfg, device)
     counts = train_cli_phase()
     timing = train_time_phase(train_cfg, device, errs)
-    vctk_counts, win_counts = train_cli_vctk_phase()
     timing.update(train_time_vctk_phase(device, errs))
+    timing.update(enc_kernel_phase(device, errs))
+    probe = probes_phase(1e3 * ms / T_req)
+    # the quality check's training is host-bound and long: it runs beside
+    # the CLI phases, whose checks hold values, after every phase that
+    # times the card and before the rest
+    started = quality_start(device, smi)
+    try:
+        vctk_counts, win_counts = train_cli_vctk_phase()
+        codec_counts = cli_codec_phase(device)
+        quality_kernel = quality_finish(started, device, smi)
+    finally:
+        if started[0].poll() is None:
+            started[0].kill()
+            started[0].wait()
+        shutil.rmtree(started[1], ignore_errors=True)
+    host_data_phase()
     # each kernel's launches come from the run of the path that uses it
     counts.update({k: vctk_counts[k] for k in ("chunk_bwd_rec",
                                                  "vq_argmin",
                                                  "take_rows_bwd")})
     counts["chunk_bwd_win"] = win_counts["chunk_bwd_win"]
-    timing.update(enc_kernel_phase(device, errs))
-    codec_counts = cli_codec_phase(device)
     counts.update({k: codec_counts[k] for k in ("encoder_fwd",
                                                  "encoder_bwd")})
     for name, src, replaces in (
@@ -2623,7 +2933,6 @@ def main():
                         "replaces": replaces, "launches": counts[name],
                         "max_abs_err": errs[name], "library_ms": None,
                         **timing[name]})
-    probe = probes_phase(1e3 * ms / T_req)
     for name, src, replaces in (
             ("cond_fwd", "upsample.cu", "scripts/cond_inkernel_probe.py:91"),
             ("cond_bwd", "upsample.cu",
@@ -2640,6 +2949,7 @@ def main():
         kernels.append({"name": name, "route": "cuda",
                         "source": f"vqvae_tpu_torch/csrc/{src}",
                         "replaces": replaces, **probe[name]})
+    kernels.append(quality_kernel)
     mesh_phase(device, smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1152,3 +1152,20 @@ def test_embed_inputs_backward_runs_the_kernel_not_the_scatter(cuda):
     c0 = ebc.take_rows_bwd_plain(ids[:, :-1], cot[:, 1:], cfg.mu,
                                  cfg.cdtype).float()
     assert _rel_err(w.grad[1], c1) <= 3e-2 and _rel_err(w.grad[0], c0) <= 3e-2
+
+
+def test_reconstruction_quality_cuda(cuda, tmp_path):
+    """tests/test_quality.py on the card: tiny trained 6000 steps with the
+    EMA codebook and dead-code restart, its held-out tone reconstructed
+    through the one-shot engine (lax) and the daemon's (pallas-stream),
+    the speaker-conditioning matrix through the daemon's, held to every
+    condition of the JAX gate (``quality_gate``).  Minutes of card time
+    (about 3 on an H100)."""
+    from vqvae_tpu_torch.quality.quality_check import (
+        quality_gate,
+        run_quality_check,
+    )
+    rec = run_quality_check(steps=6000, out_dir=str(tmp_path),
+                            engines=("lax", "pallas-stream"),
+                            speaker_matrix=True, device=cuda)
+    assert quality_gate(rec) == [], rec

@@ -44,6 +44,8 @@ def test_port_imports_without_jax():
         "import vqvae_tpu_torch.parallel.sharded_conv\n"
         "import vqvae_tpu_torch.parallel.sp_decoder\n"
         "import vqvae_tpu_torch.infer.parallel\n"
+        "import vqvae_tpu_torch.quality.quality_check\n"
+        "import vqvae_tpu_torch.quality.make_demo\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'vqvae_tpu'))\n"
         "print(bad)\n"
