@@ -36,6 +36,11 @@ nonzero:
              bit, a codes-mode session cut at (37, 1, 100, rest) its own
              one-shot decode, a pcm-mode session its reconstruct; its
              launch count must rise; its realtime factors printed.
+             Against each daemon, ``python3 -m vqvae_tpu_torch.measure.
+             serve_bench --requests 5`` (1 s sampled decodes through the
+             client): it names the daemon's engine, and its realtime
+             factor is within 10% of the one the daemon's own ``stats``
+             give for the phase's 1 s decodes.
 6. request — one 1 s decode request as the daemon makes it (B=1, bf16,
              one kernel call over 16000 steps): its kernel time; the kernel
              against the plain version over a tenth of it (1600 steps: the
@@ -200,9 +205,29 @@ nonzero:
              beside the plain loop and its bound; ``make_demo -m <run>``
              into a temporary directory, whose metrics.json must equal
              eval_quality's lax numbers (speaker 0, seed 0).
+18. tools   — the measurement tools (``python3 -m vqvae_tpu_torch.
+             measure.<name>``) as subprocesses at reduced counts, one
+             at a time on the card, each started once its imports are
+             done (they overlap the tool before it):
+             ``train_roofline --batches 64 --steps 3``;
+             ``train_step_profile`` on stretch at B=64 and on vctk-multi
+             (``--decoder-kernel pallas``) at B=16, 3 steps each, whose
+             phases plus idle buckets must equal the profiled window
+             within 1%, whose captures with and without Python stacks
+             must run the same kernels with busy times within 5%, which
+             must name every kernel through its launch, with "other"
+             under 10% of the device time;
+             ``step_bench 64 3 1``; ``embed_kernel_bench --runs 3 --reps
+             1``, whose loss after 3 steps must move by at most 1e-3
+             (relative) with embed_in_kernel on; ``encoder_share --batch
+             16`` with each encoder; ``session_sweep --widths 16
+             --decompose 16``, whose push parts must sum to within 5% of
+             the push p50; ``decode_int8_bigbatch``.  Each exits 0
+             and its last JSON line holds only finite numbers; each line
+             is printed.
 
-They run in the order 1-9, 12, 13, 15, 17's timing and start, 10 and
-14 beside the quality check, 17's checks, 11, 16: every phase that
+They run in the order 1-9, 12, 13, 15, 18, 17's timing and start, 10
+and 14 beside the quality check, 17's checks, 11, 16: every phase that
 times the card runs alone on it.
 The train-time phases also print each step's share of the bf16 peak by
 ``utils/flops.py::train_step_flops``.  Then one JSON line of per-kernel results and, last, the device line.
@@ -218,16 +243,30 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
-import numpy as np
-
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# Python's bytecode cache under build/, written by this process and read
+# and written by every one it starts: on the card's machine site-packages
+# hold no bytecode and PYTHONDONTWRITEBYTECODE=1 is set, so each process
+# compiled torch's sources anew (importing torch and its compiler stack
+# took 16-17 s there, 9-10 s from the cache)
+PYCACHE = os.path.join(ROOT, "build", "pycache")
+sys.pycache_prefix = PYCACHE
+sys.dont_write_bytecode = False
+os.environ["PYTHONPYCACHEPREFIX"] = PYCACHE
+os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+
+import numpy as np  # noqa: E402
+
+from vqvae_tpu_torch.utils.flops import (  # noqa: E402
+    PEAK_BYTES,
+    PEAK_F32,
+    PEAK_F64_TC,
+    PEAK_FLOPS,
+)
+
 PRESET = "vctk-multi"
 TRAIN_PRESET = "stretch"
 VQ_MARGIN = 1e-4        # near-tie margin of the VQ id check, of max|score|
-PEAK_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate
-PEAK_F32 = 67e12        # H100 SXM float32 rate outside the tensor cores
-PEAK_F64_TC = 67e12     # H100 SXM float64 tensor-core rate (DMMA)
-PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
 T_CHECK = 640
 TEMP = 0.9
 FIRST_PUSH = 4096   # steps before the resumed check of the request phase
@@ -242,7 +281,10 @@ def say(phase, t0, msg):
 
 
 def fail(msg):
+    """Stop with ``msg`` on both streams: a caller that keeps only the
+    end of standard error still reads why."""
     print(f"FAIL: {msg}", flush=True)
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -497,6 +539,7 @@ def serve_phase(flag, cfg_all, device, dc):
         check(launched > 0, "the daemon's requests launched no kernel")
         check(dc.launches == 0, "this process launched during the serve run")
         ops = stats["ops"]
+        serve_bench(d.sock, stats, "kernel", t0)
         say("serve", t0, "through vqvae_tpu_torch.client: ping, encode, "
             "decode (greedy, sampled), reconstruct, 2 codes-mode sessions "
             "(== one-shot decode) and a pcm-mode session (== reconstruct), "
@@ -562,6 +605,7 @@ def stream_phase(npz, work, codes, tone, outs, flag):
         launched = stats["kernel_launches"] - before
         check(stats["engine"] == "stream" and launched > 0,
               f"the stream engine's requests launched no kernel: {stats}")
+        serve_bench(d.sock, stats, "stream", t0)
         say("serve", t0, "--engine stream: decode (greedy, sampled) == the "
             "kernel engine's, codes-mode sessions (37, 1, 100, rest) == "
             "one-shot, reconstruct == the kernel engine's, a pcm-mode "
@@ -1036,7 +1080,8 @@ def train_cli_phase():
              "--profile", "2"],
             cwd=ROOT, capture_output=True, text=True, timeout=900)
         if r.returncode != 0:
-            print(r.stdout[-4000:], r.stderr[-4000:], flush=True)
+            print(r.stdout[-4000:], flush=True)
+            print(r.stderr[-4000:], file=sys.stderr, flush=True)
             fail(f"the trainer exited with {r.returncode}")
         recs = [json.loads(ln) for ln in open(os.path.join(out,
                                                            "log.jsonl"))]
@@ -1350,7 +1395,8 @@ def train_vctk(tree, out, steps, *extra):
     r = subprocess.run(args, cwd=ROOT, capture_output=True, text=True,
                        timeout=600)
     if r.returncode != 0:
-        print(r.stdout[-4000:], r.stderr[-4000:], flush=True)
+        print(r.stdout[-4000:], flush=True)
+        print(r.stderr[-4000:], file=sys.stderr, flush=True)
         fail(f"the vctk-multi trainer exited with {r.returncode}: "
              f"{' '.join(args[2:])}")
     recs = [json.loads(ln) for ln in open(os.path.join(out, "log.jsonl"))]
@@ -1916,7 +1962,8 @@ def run_cli(name, *args, timeout=600):
     r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
                        timeout=timeout)
     if r.returncode != 0:
-        print(r.stdout[-4000:], r.stderr[-4000:], flush=True)
+        print(r.stdout[-4000:], flush=True)
+        print(r.stderr[-4000:], file=sys.stderr, flush=True)
         fail(f"vqvae-torch-{name} exited with {r.returncode}: "
              f"{' '.join(cmd[3:])}")
     line = [ln for ln in r.stdout.splitlines()
@@ -2097,7 +2144,8 @@ def run_probe(name, *args, timeout=600):
     recs = [json.loads(ln) for ln in r.stdout.splitlines()
             if ln.startswith('{"probe"')]
     if r.returncode != 0 or len(recs) != 1:
-        print(r.stdout[-4000:], r.stderr[-4000:], flush=True)
+        print(r.stdout[-4000:], flush=True)
+        print(r.stderr[-4000:], file=sys.stderr, flush=True)
         fail(f"probe {name} exited with {r.returncode}")
     rec = recs[0]
     for key, row in rec["checks"].items():
@@ -2237,6 +2285,205 @@ def probes_phase(decode_us):
     for name, v in out.items():
         check(v["launches"] > 0, f"{name}: not launched in its probe run")
     return out
+
+
+TOOL_TIMEOUT = 300      # each measurement tool's own time limit, s
+PROFILE_TOL = 0.01      # phases + idle buckets against the window
+OTHER_MAX = 0.10        # the profile's "other" phase, of device time
+# the two captures of a profile run the same kernels: their busy times
+BUSY_TOL = 0.05
+SPLIT_TOL = 0.05        # a push's parts against the push p50
+EMBED_LOSS_TOL = 1e-3   # embed_in_kernel on against off, loss after 3 steps
+SERVE_RT_TOL = 0.10     # the serve bench's realtime factor against stats
+
+
+def finite_numbers(x):
+    """Every number in a JSON value (None is not a number)."""
+    if isinstance(x, dict):
+        return all(finite_numbers(v) for v in x.values())
+    if isinstance(x, list):
+        return all(finite_numbers(v) for v in x)
+    if isinstance(x, bool) or x is None or isinstance(x, str):
+        return True
+    return bool(np.isfinite(x))
+
+
+def tool_record(name, args, rc, stdout, stderr):
+    """A tool's last JSON line, which must parse and hold only finite
+    numbers, after it exited 0."""
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("{")]
+    if rc != 0 or not lines:
+        print(stdout[-4000:], flush=True)
+        print(stderr[-4000:], file=sys.stderr, flush=True)
+        fail(f"measure.{name} exited with {rc}: {' '.join(args)}")
+    rec = json.loads(lines[-1])
+    check(finite_numbers(rec), f"measure.{name}: a number not finite: {rec}")
+    return rec
+
+
+def run_tool(name, *args, timeout=TOOL_TIMEOUT):
+    """``python3 -m vqvae_tpu_torch.measure.<name>`` as a user runs it:
+    (its record, its seconds of wall time)."""
+    cmd = [sys.executable, "-m", f"vqvae_tpu_torch.measure.{name}", *args]
+    t0 = time.monotonic()
+    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                       timeout=timeout)
+    return (tool_record(name, args, r.returncode, r.stdout, r.stderr),
+            time.monotonic() - t0)
+
+
+# A staged tool's process imports these, then waits for a line on its
+# stdin before it runs the tool as ``python -m`` does (runpy), touching
+# the card only then: the phase stages the next tool while one runs, so
+# a tool's ~10 s of imports never wait on the card.
+PRELOAD = ("torch", "torch._dynamo", "torch.profiler",
+           "vqvae_tpu_torch.train.step", "vqvae_tpu_torch.measure._common")
+STAGED = ("import importlib, runpy, sys\n"
+          "for m in {mods!r}:\n    importlib.import_module(m)\n"
+          "sys.stdin.readline()\n"
+          "runpy.run_module({mod!r}, run_name='__main__', alter_sys=True)\n")
+
+
+def stage_tool(name, *args):
+    """The process of ``measure.<name> args``, importing, not started."""
+    code = STAGED.format(mods=PRELOAD, mod=f"vqvae_tpu_torch.measure.{name}")
+    return subprocess.Popen([sys.executable, "-c", code, *args], cwd=ROOT,
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def start_tool(proc):
+    proc.stdin.write("go\n")
+    proc.stdin.flush()
+
+
+def finish_tool(proc, name, args, timeout=TOOL_TIMEOUT):
+    """A started staged tool's record, once it exits."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"measure.{name} ran over {timeout} s")
+    return tool_record(name, args, proc.returncode, out, err)
+
+
+def serve_bench(sock, stats, engine, t0):
+    """``measure.serve_bench`` against the serve phase's daemon on
+    ``sock``: its engine is ``engine`` and its realtime factor within
+    SERVE_RT_TOL of the one the daemon's own stats give for its 1 s
+    decodes (``stats``, read by the phase before the bench)."""
+    rec, sec = run_tool("serve_bench", "--socket", sock, "--requests", "5")
+    stats_x = rec["audio_s"] / (stats["ops"]["decode"]["ms"]["p50"] / 1e3)
+    check(rec["engine"] == engine, f"serve_bench measured {rec['engine']}")
+    check(abs(rec["realtime_x"] / stats_x - 1) <= SERVE_RT_TOL,
+          f"serve_bench realtime {rec['realtime_x']}x against the daemon's "
+          f"stats {stats_x}x")
+    say("serve", t0, f"measure.serve_bench ({sec:.1f} s), --engine {engine}: "
+        f"{json.dumps(rec)}; the daemon's stats: {stats_x:.4f}x")
+
+
+def check_profile(rec, name):
+    """The profile's phases plus idle buckets equal its window within
+    PROFILE_TOL (its arithmetic: the buckets tile the window); its two
+    captures ran the same kernels (a pair that did not is taken again,
+    at most PAIRS times, and printed), whose busy times agree within
+    BUSY_TOL; every kernel was named through its launch in a port frame,
+    none by its name alone; and "other" is under OTHER_MAX of the device
+    time.  (How much longer than the step either capture ran is printed,
+    not checked: the profiler's host cost varies between runs.)"""
+    from vqvae_tpu_torch.measure.train_step_profile import PAIRS
+    phases = sum(v["ms_per_step"] for v in rec["phases"].values())
+    idle = sum(v["ms_per_step"] for v in rec["idle_by_host"].values())
+    window = rec["profiled_wall_ms_per_step"]
+    check(abs(phases + idle - window) <= PROFILE_TOL * window,
+          f"{name}: phases {phases} + idle {idle} != window {window} ms")
+    check(rec["kernels_matched"], f"{name}: the captures with and without "
+          f"Python stacks ran different kernels in {PAIRS} pairs: "
+          f"{rec['pairs_missed']}")
+    busy, stacked = (rec["device_busy_ms_per_step"],
+                     rec["stacked_busy_ms_per_step"])
+    check(abs(busy - stacked) <= BUSY_TOL * stacked,
+          f"{name}: busy {busy} ms without stacks, {stacked} ms with")
+    check(rec["kernels_by_name"] == 0, f"{name}: {rec['kernels_by_name']} "
+          "kernels named by their name alone: no launch in a port frame")
+    other = rec["phases"].get("other", {"ms_per_step": 0.0})["ms_per_step"]
+    check(other < OTHER_MAX * rec["device_busy_ms_per_step"],
+          f"{name}: other {other} ms of {rec['device_busy_ms_per_step']} ms "
+          "device time: the phase table misses a module")
+
+
+def tools_phase():
+    """The measurement tools (``vqvae_tpu_torch/measure``) as
+    subprocesses at reduced counts, one at a time alone on the card (the
+    next one imports meanwhile: ``stage_tool``);
+    each one's last JSON line parses and holds only finite numbers; the
+    profiles add up and know their modules; embed_in_kernel keeps the
+    loss.  (The serve bench runs in the serve phase, against its
+    daemons.)"""
+    t0 = time.monotonic()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_tools_",
+                            dir=os.path.join(ROOT, "build"))
+    specs = (("roofline", "train_roofline",
+              ("--batches", "64", "--steps", "3")),
+             ("profile_stretch", "train_step_profile",
+              ("--preset", "stretch", "--batch", "64", "--steps", "3",
+               "--out", work)),
+             ("profile_vctk", "train_step_profile",
+              ("--decoder-kernel", "pallas", "--batch", "16", "--steps",
+               "3", "--out", work)),
+             ("step_bench", "step_bench", ("64", "3", "1")),
+             ("embed_kernel_bench", "embed_kernel_bench",
+              ("--runs", "3", "--reps", "1")),
+             ("encoder_share_xla", "encoder_share",
+              ("--batch", "16", "--encoder-kernel", "xla")),
+             ("encoder_share_pallas", "encoder_share",
+              ("--batch", "16", "--encoder-kernel", "pallas")),
+             ("session_sweep", "session_sweep",
+              ("--widths", "16", "--decompose", "16")),
+             ("decode_int8_bigbatch", "decode_int8_bigbatch", ()))
+    out, staged = {}, stage_tool(specs[0][1], *specs[0][2])
+    try:
+        for i, (tag, name, args) in enumerate(specs):
+            proc, t1 = staged, time.monotonic()
+            start_tool(proc)
+            staged = (stage_tool(specs[i + 1][1], *specs[i + 1][2])
+                      if i + 1 < len(specs) else None)
+            rec = finish_tool(proc, name, args)
+            if name == "train_step_profile":
+                check_profile(rec, tag)
+            out[tag] = rec
+            say("tools", t0, f"measure.{name} {' '.join(args)} "
+                f"({time.monotonic() - t1:.1f} s after its imports): "
+                f"{json.dumps(rec)}")
+    finally:
+        if staged is not None:
+            staged.kill()
+            staged.communicate()
+        shutil.rmtree(work, ignore_errors=True)
+    rel = out["embed_kernel_bench"]["loss3_rel_delta"]
+    check(rel <= EMBED_LOSS_TOL, f"embed_in_kernel moved the loss by {rel}")
+    sweep = out["session_sweep"]
+    split = sweep["decompose"]
+    parts = sum(v for k, v in split.items() if k.endswith("_ms"))
+    p50 = next(r["push_p50_ms"] for r in sweep["rows"]
+               if r["width"] == split["width"])
+    check(abs(parts / p50 - 1) <= SPLIT_TOL, f"session_sweep: the push's "
+          f"parts sum to {parts} ms, its p50 is {p50} ms")
+    for tag in ("profile_stretch", "profile_vctk"):
+        r = out[tag]
+        idle = ", ".join(f"{k} {v['ms_per_step']:.3f}"
+                         for k, v in r["idle_by_host"].items())
+        say("tools", t0, f"{tag}: {r['wall_ms_per_step']:.2f} ms a step "
+            f"(profiled {r['profiled_wall_ms_per_step']:.2f}, with stacks "
+            f"{r['stacked_wall_ms_per_step']:.2f}), busy "
+            f"{100 * r['busy_share']:.1f}%, accounted "
+            f"{r['accounted_pct']:.2f}%, capture pairs retaken "
+            f"{len(r['pairs_missed'])} {json.dumps(r['pairs_missed'])}; "
+            "idle by host (ms a step; "
+            f"{r['borrowed_idle_ms_per_step']:.3f} labelled from the "
+            f"stacked capture): {idle}")
 
 
 MESH_TOL = 1e-4          # losses: JAX's sharding tolerance
@@ -2671,7 +2918,8 @@ def quality_finish(started, device, smi):
     with open(os.path.join(work, "stderr")) as f:
         err = f.read()
     if rc != 0 or len(out) < 2:
-        print("\n".join(out[-20:]), err[-4000:], flush=True)
+        print("\n".join(out[-20:]), flush=True)
+        print(err[-4000:], file=sys.stderr, flush=True)
         fail(f"the quality check exited with {rc}")
     rec = json.loads(out[-2])
     launched = json.loads(out[-1].split(": ", 1)[1])["decode"]
@@ -2887,6 +3135,7 @@ def main():
     timing.update(train_time_vctk_phase(device, errs))
     timing.update(enc_kernel_phase(device, errs))
     probe = probes_phase(1e3 * ms / T_req)
+    tools_phase()
     # the quality check's training is host-bound and long: it runs beside
     # the CLI phases, whose checks hold values, after every phase that
     # times the card and before the rest

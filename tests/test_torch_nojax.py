@@ -46,8 +46,18 @@ def test_port_imports_without_jax():
         "import vqvae_tpu_torch.infer.parallel\n"
         "import vqvae_tpu_torch.quality.quality_check\n"
         "import vqvae_tpu_torch.quality.make_demo\n"
+        "import vqvae_tpu_torch.measure, vqvae_tpu_torch.measure._common\n"
+        "import vqvae_tpu_torch.measure.step_bench\n"
+        "import vqvae_tpu_torch.measure.embed_kernel_bench\n"
+        "import vqvae_tpu_torch.measure.encoder_share\n"
+        "import vqvae_tpu_torch.measure.train_roofline\n"
+        "import vqvae_tpu_torch.measure.train_step_profile\n"
+        "import vqvae_tpu_torch.measure.serve_bench\n"
+        "import vqvae_tpu_torch.measure.session_sweep\n"
+        "import vqvae_tpu_torch.measure.decode_int8_bigbatch\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'vqvae_tpu'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'vqvae_tpu',\n"
+        "                                    'scripts'))\n"
         "print(bad)\n"
         "assert not bad, bad\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

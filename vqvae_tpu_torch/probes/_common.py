@@ -9,7 +9,8 @@ import statistics
 
 import torch
 
-PEAK_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s (the read-cost bound)
+# the read-cost bound of the probes
+from vqvae_tpu_torch.utils.flops import PEAK_BYTES  # noqa: F401
 
 
 def add_device_arg(p: argparse.ArgumentParser) -> None:

@@ -3,11 +3,20 @@
 
 A profiler sees only the kernels' time, not their work, so the share of
 a step that reaches the card's peak (MFU) is taken against this count.
+
+The card's peaks live here, once, for every bound and share of peak the
+port prints (``chip_smoke.py``, ``measure/``): NVIDIA's data sheet for
+the H100 SXM, dense rates, at the full 700 W power limit.
 """
 
 from __future__ import annotations
 
 from vqvae_tpu_torch.configs import Config
+
+PEAK_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate
+PEAK_F32 = 67e12        # H100 SXM float32 rate outside the tensor cores
+PEAK_F64_TC = 67e12     # H100 SXM float64 tensor-core rate (DMMA)
+PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
 
 
 def train_step_flops(cfg: Config, batch: int) -> float:
