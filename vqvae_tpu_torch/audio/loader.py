@@ -20,6 +20,8 @@ from typing import Iterator, Tuple
 
 import numpy as np
 
+from vqvae_tpu_torch.utils.profiling import span
+
 
 def make_batch(dataset, batch_size: int, seed: int, index: int
                ) -> Tuple[np.ndarray, np.ndarray]:
@@ -100,7 +102,8 @@ class BatchLoader:
         return self
 
     def __next__(self) -> Tuple[np.ndarray, np.ndarray]:
-        batch = self._q.get()
+        with span("data.wait"):
+            batch = self._q.get()
         if isinstance(batch, Exception):
             self.close()
             raise batch

@@ -15,6 +15,7 @@ from vqvae_tpu_torch.train.checkpoint import (
     load_checkpoint_params,
     load_weights_npz,
 )
+from vqvae_tpu_torch.utils import profiling
 
 
 def add_config_args(p: argparse.ArgumentParser) -> None:
@@ -196,8 +197,7 @@ def speaker_ids(ids, B: int, cfg: Config, device):
     return torch.tensor(ids, dtype=torch.long, device=device)
 
 
-def launch_counts() -> dict:
-    """Kernel launches in this process, by kernel."""
+def _kernel_launches() -> dict:
     from vqvae_tpu_torch.kernels import (
         decode_cuda,
         embed_cuda,
@@ -217,6 +217,16 @@ def launch_counts() -> dict:
             "head_ce_bwd": head_ce_cuda.launches_bwd,
             "vq_argmin": vq_cuda.launches,
             "take_rows_bwd": embed_cuda.launches["take_rows_bwd"]}
+
+
+# the kernels' launch counts join the program's counters (``counters()``)
+profiling.register_counters("launches", _kernel_launches)
+
+
+def launch_counts() -> dict:
+    """Kernel launches in this process, by kernel (the ``launches``
+    group of ``utils/profiling.py``'s counters)."""
+    return profiling.read_counters("launches")
 
 
 def print_launch_counts() -> None:

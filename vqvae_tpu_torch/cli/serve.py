@@ -44,6 +44,14 @@ refused by both engines, never routed to a plain decoder on the card.
 the decode kernel's launch count in this process.  The request's
 ``seed`` is the kernel's Philox key.
 
+``--spans`` turns the program's tracing on (``utils/profiling.py``):
+every request's spans (``serve.recv``, ``serve.parse``,
+``serve.lock_wait``, ``serve.handle``, ``stream.*``, ``serve.respond``)
+share a request id, and ``stats`` gains ``spans`` (per name: count,
+total ms, p50 and p95 over the span ring) and ``counters`` (requests
+by op, pushes, frames in, samples out, lock acquisitions and waits,
+spans dropped, kernel launches).
+
 ``--device cuda`` (the default) fails at startup without a GPU; the
 daemon never moves to the CPU by itself.  ``--device cpu`` runs the
 kernel's plain PyTorch version (for tests and development).
@@ -75,6 +83,8 @@ from vqvae_tpu_torch.infer.kernel_stream import (
 )
 from vqvae_tpu_torch.infer.streaming import StreamingSynthesizer
 from vqvae_tpu_torch.kernels import decode_cuda
+from vqvae_tpu_torch.utils import profiling
+from vqvae_tpu_torch.utils.profiling import counter, span
 
 ENGINES = ("kernel", "stream")
 
@@ -222,12 +232,16 @@ class Stats:
                            "ms": {"p50": q(0.50), "p90": q(0.90),
                                   "p99": q(0.99),
                                   "max": round(float(arr[-1]), 2)}}
-            return {"ok": True,
-                    "uptime_s": round(time.monotonic() - self.started, 1),
-                    "connections": {"active": self.conn_active,
-                                    "total": self.conn_total},
-                    "kernel_launches": decode_cuda.launches,
-                    "ops": ops}
+            out = {"ok": True,
+                   "uptime_s": round(time.monotonic() - self.started, 1),
+                   "connections": {"active": self.conn_active,
+                                   "total": self.conn_total},
+                   "kernel_launches": decode_cuda.launches,
+                   "ops": ops}
+        if profiling.tracing():
+            out["spans"] = profiling.span_stats()
+            out["counters"] = profiling.counters()
+        return out
 
 
 class _SynthSession:
@@ -297,7 +311,11 @@ class StreamSession:
             if "codes" not in req:
                 raise ValueError("codes-mode stream_push needs codes")
             codes = np.asarray(req["codes"], np.int64).reshape(1, -1)
-        return self.dec.push(codes)
+        wav = self.dec.push(codes)
+        counter("stream.pushes")
+        counter("stream.frames_in", codes.shape[1])
+        counter("stream.samples_out", wav.shape[1])
+        return wav
 
     def close(self) -> np.ndarray:
         pieces = []
@@ -352,8 +370,9 @@ def _stream_ops(codec: Codec, op: str, req: dict, sessions: dict) -> dict:
         raise
     if op == "stream_close":
         sessions.pop(sid, None)
-    return {"ok": True, "pcm16": float_to_pcm16(wav[0]),
-            "samples": int(wav.shape[1])}
+    with span("stream.pcm_encode"):
+        pcm = float_to_pcm16(wav[0])
+    return {"ok": True, "pcm16": pcm, "samples": int(wav.shape[1])}
 
 
 def handle(codec: Codec, req: dict, stats: Stats | None = None,
@@ -408,20 +427,33 @@ def answer(codec: Codec, req: dict, lock, stats: Stats,
     a request raises becomes an error response, device work is
     serialized by ``lock``, and wall time (queueing included) lands in
     ``stats``.  ``error_kind`` is 'client' for a bad request and
-    'internal' for an engine or device fault."""
+    'internal' for an engine or device fault.  Its spans are
+    ``serve.lock_wait`` and ``serve.handle`` (under the lock)."""
     t0 = time.monotonic()
+    op = req.get("op")
+    if profiling.tracing():
+        counter(f"serve.requests.{op}")
     try:
-        if req.get("op") in LOCKFREE_OPS:
-            resp = handle(codec, req, stats, sessions)
-        else:
-            with lock:
+        if op in LOCKFREE_OPS:
+            with span("serve.handle", op=op):
                 resp = handle(codec, req, stats, sessions)
+        else:
+            with span("serve.lock_wait"):
+                if not lock.acquire(blocking=False):
+                    counter("serve.lock_waits")
+                    lock.acquire()
+            counter("serve.lock_acquisitions")
+            try:
+                with span("serve.handle", op=op):
+                    resp = handle(codec, req, stats, sessions)
+            finally:
+                lock.release()
     except (ValueError, KeyError, TypeError) as exc:
         resp = {"ok": False, "error": repr(exc), "error_kind": "client"}
     except Exception as exc:  # noqa: BLE001 — a bad request
         # must not kill the daemon
         resp = {"ok": False, "error": repr(exc), "error_kind": "internal"}
-    stats.record(str(req.get("op")), bool(resp.get("ok")),
+    stats.record(str(op), bool(resp.get("ok")),
                  (time.monotonic() - t0) * 1e3)
     return resp
 
@@ -430,13 +462,17 @@ MAX_REQUEST_BYTES = 64 << 20   # cap a request line / HTTP body
 
 
 def _client_loop(codec: Codec, conn, lock, stop, stats: Stats) -> None:
-    """One connection: read lines, answer in order."""
+    """One connection: read lines, answer in order.  Its spans are
+    ``serve.recv`` (waiting for the line), ``serve.parse`` and
+    ``serve.respond``, with a new request id each line."""
     stats.connection(+1)
     sessions: dict = {}   # this connection's live streams
     try:
         with conn, conn.makefile("rwb") as f:
             while True:
-                line = f.readline(MAX_REQUEST_BYTES + 1)
+                profiling.begin_request()
+                with span("serve.recv"):
+                    line = f.readline(MAX_REQUEST_BYTES + 1)
                 if not line:
                     break
                 if len(line) > MAX_REQUEST_BYTES:
@@ -450,7 +486,8 @@ def _client_loop(codec: Codec, conn, lock, stop, stats: Stats) -> None:
                 if not line.strip():
                     continue
                 try:
-                    req = json.loads(line)
+                    with span("serve.parse"):
+                        req = json.loads(line)
                 except ValueError as exc:
                     resp = {"ok": False, "error": repr(exc)}
                 else:
@@ -460,8 +497,9 @@ def _client_loop(codec: Codec, conn, lock, stop, stats: Stats) -> None:
                         stop.set()
                         return
                     resp = answer(codec, req, lock, stats, sessions)
-                f.write(json.dumps(resp).encode() + b"\n")
-                f.flush()
+                with span("serve.respond"):
+                    f.write(json.dumps(resp).encode() + b"\n")
+                    f.flush()
     except OSError:
         return  # idle timeout or client went away mid-line
     finally:
@@ -556,6 +594,7 @@ def serve_http(codec: Codec, hostport: str,
                 threading.Thread(target=httpd.shutdown, daemon=True).start()
                 return
             req["op"] = op
+            profiling.begin_request()
             resp = answer(codec, req, lock, stats)
             status = (200 if resp.get("ok")
                       else 500 if resp.get("error_kind") == "internal"
@@ -637,6 +676,9 @@ def main() -> None:
                         "a push")
     p.add_argument("--idle-timeout", type=float, default=300.0,
                    help="disconnect a client after this many idle seconds")
+    p.add_argument("--spans", action="store_true",
+                   help="record the program's spans and counters, "
+                        "reported by the stats op")
     args = p.parse_args()
     if sum(map(bool, (args.socket, args.tcp, args.http))) != 1:
         p.error("exactly one of --socket, --tcp or --http is required")
@@ -663,6 +705,7 @@ def main() -> None:
         print(f"WARNING: sustained session pushes are below realtime "
               f"({srt}x at {codec.chunk} frames) — live streams "
               "will stutter", flush=True)
+    profiling.set_tracing(args.spans)
     if args.http:
         serve_http(codec, args.http, args.idle_timeout)
     else:

@@ -23,7 +23,8 @@ field goes through ``--set``.  ``--loader grain`` builds batches in
 worker processes (the same stream as ``threads``), ``--tensorboard``
 adds TensorBoard scalars in ``<out>/tb``, and ``<out>/loss.png`` holds
 the loss curves when matplotlib is installed.  ``--profile N`` traces N
-steps with ``torch.profiler`` into ``<out>/profile`` (a Chrome trace).
+steps with ``torch.profiler`` into ``<out>/profile`` (a Chrome trace that
+holds the program's spans, ``utils/profiling.py``).
 A mesh larger than the world (``--mesh-model 2`` in one process) is
 refused before anything is written.
 """

@@ -30,6 +30,7 @@ from vqvae_tpu_torch.infer.streaming import (
 )
 from vqvae_tpu_torch.kernels import decode_cuda
 from vqvae_tpu_torch.models.wavenet import global_cond, make_gen_params
+from vqvae_tpu_torch.utils.profiling import span
 
 
 def _check_codes(codes: np.ndarray, K: int) -> np.ndarray:
@@ -68,25 +69,33 @@ class KernelStreamDecoder:
             return global_cond(self._dec, self.cfg, self._speaker(speaker))
 
     def _run(self, cond, gcond, seed, temperature, greedy, state):
-        """One kernel call over ``cond`` -> (waveform [B, T], state)."""
-        ids, state = decode_cuda.generate_ids_resume(
-            self.gp, self.cfg, cond, gcond, seed, temperature, state, greedy)
-        return mu_law_decode(ids, self.cfg.mu, mode=self.cfg.mulaw_mode), state
+        """One kernel call over ``cond`` -> (waveform [B, T] in host
+        memory, state)."""
+        with span("stream.decode"):
+            ids, state = decode_cuda.generate_ids_resume(
+                self.gp, self.cfg, cond, gcond, seed, temperature, state,
+                greedy)
+        with span("stream.readback"):      # the host waits for the kernel
+            wav = mu_law_decode(ids, self.cfg.mu, mode=self.cfg.mulaw_mode)
+            return wav.cpu(), state
 
     def decode(self, codes: np.ndarray, speaker, seed: int = 0,
                temperature: float = 1.0, greedy: bool = False) -> np.ndarray:
         """codes ``[B, n]``, speaker ``[B]`` -> ``[B, n*hop]`` float32."""
-        codes = _check_codes(codes, self.cfg.K)
-        gcond = self._prep(speaker)
-        if codes.shape[0] != gcond.shape[1]:
-            raise ValueError("codes must be [B, n] with B matching the "
-                             f"speakers' {gcond.shape[1]}")
+        with span("stream.upload"):
+            codes = _check_codes(codes, self.cfg.K)
+            gcond = self._prep(speaker)
+            if codes.shape[0] != gcond.shape[1]:
+                raise ValueError("codes must be [B, n] with B matching the "
+                                 f"speakers' {gcond.shape[1]}")
+            ids = torch.from_numpy(codes).to(self.device)
         with torch.no_grad():
-            cond = self._ups(torch.from_numpy(codes).to(self.device))
+            with span("stream.upsample"):
+                cond = self._ups(ids)
             state = decode_cuda.init_decode_state(
                 self.cfg, codes.shape[0], self.gp.wff.dtype, self.device)
             wav, _ = self._run(cond, gcond, seed, temperature, greedy, state)
-        return wav.cpu().numpy()
+        return wav.numpy()
 
     def session(self, speaker, seed: int = 0, temperature: float = 1.0,
                 greedy: bool = False) -> "KernelStreamSession":
@@ -115,13 +124,14 @@ class KernelStreamSession:
         (``n*hop`` samples, ``hop//2`` fewer on the first push)."""
         if self._closed:
             raise ValueError("session is closed")
-        codes = _check_codes(codes, self.dec.cfg.K)
-        return self._syn.push(torch.from_numpy(codes).to(
-            self.dec.device)).cpu().numpy()
+        with span("stream.upload"):
+            codes = _check_codes(codes, self.dec.cfg.K)
+            ids = torch.from_numpy(codes).to(self.dec.device)
+        return self._syn.push(ids, host=True).numpy()
 
     def close(self) -> np.ndarray:
         """Flush the upsampler tail; the session is then unusable."""
         if self._closed:
             raise ValueError("session is closed")
         self._closed = True
-        return self._syn.flush().cpu().numpy()
+        return self._syn.flush(host=True).numpy()

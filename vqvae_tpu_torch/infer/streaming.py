@@ -33,6 +33,7 @@ from vqvae_tpu_torch.configs import ModelConfig
 from vqvae_tpu_torch.kernels import decode_cuda
 from vqvae_tpu_torch.models.wavenet import global_cond, make_gen_params
 from vqvae_tpu_torch.ops.conv import matmul
+from vqvae_tpu_torch.utils.profiling import span
 
 
 class CondUpsampler:
@@ -154,25 +155,28 @@ class StreamingSynthesizer:
         self.state = decode_cuda.init_decode_state(
             cfg, gcond.shape[1], gp.wff.dtype, gcond.device)
 
-    def _decode(self, cond: torch.Tensor) -> torch.Tensor:
-        with torch.no_grad():
+    def _decode(self, cond: torch.Tensor, host: bool) -> torch.Tensor:
+        with torch.no_grad(), span("stream.decode"):
             ids, self.state = decode_cuda.generate_ids_resume(
                 self.gp, self.cfg, cond, self.gcond, self.seed,
                 self.temperature, self.state, self.greedy, self.row0)
-        return mu_law_decode(ids, self.cfg.mu, mode=self.cfg.mulaw_mode)
+        with span("stream.readback"):      # the host waits for the kernel
+            wav = mu_law_decode(ids, self.cfg.mu, mode=self.cfg.mulaw_mode)
+            return wav.cpu() if host else wav
 
-    def push(self, codes: torch.Tensor) -> torch.Tensor:
-        """codes ``[B, n]`` -> the waveform this push finalized."""
-        with torch.no_grad():
+    def push(self, codes: torch.Tensor, host: bool = False) -> torch.Tensor:
+        """codes ``[B, n]`` -> the waveform this push finalized (in host
+        memory with ``host``)."""
+        with torch.no_grad(), span("stream.upsample"):
             cond = self._ups.push(codes)
-        return self._decode(cond)
+        return self._decode(cond, host)
 
-    def flush(self) -> torch.Tensor:
+    def flush(self, host: bool = False) -> torch.Tensor:
         """The final ``hop - hop//2`` samples (the SAME-crop tail); empty
         when nothing was pushed."""
         if not self._ups.started:
             return torch.zeros((self.gcond.shape[1], 0),
-                               device=self.gcond.device)
-        with torch.no_grad():
+                               device="cpu" if host else self.gcond.device)
+        with torch.no_grad(), span("stream.upsample"):
             cond = self._ups.flush()
-        return self._decode(cond)
+        return self._decode(cond, host)

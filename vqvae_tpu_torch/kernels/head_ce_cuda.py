@@ -21,6 +21,7 @@ import ctypes
 import torch
 
 from vqvae_tpu_torch.kernels.build import build
+from vqvae_tpu_torch.utils.profiling import span
 
 launches_fwd = 0
 launches_bwd = 0
@@ -197,8 +198,9 @@ class _HeadCE(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         args = ctx.saved_tensors
-        dskips, dw1, db1, dw2, db2 = (
-            bwd_kernel if _on_card(args[0]) else bwd_plain)(*args, g)
+        with span("model.head.bwd"):
+            dskips, dw1, db1, dw2, db2 = (
+                bwd_kernel if _on_card(args[0]) else bwd_plain)(*args, g)
         shape, t1, tb1, t2, tb2 = ctx.meta
         return (dskips.reshape(shape), None, dw1.to(t1), db1.to(tb1),
                 dw2.to(t2), db2.to(tb2))

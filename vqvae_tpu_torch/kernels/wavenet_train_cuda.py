@@ -57,6 +57,7 @@ import torch
 import torch.utils.checkpoint
 
 from vqvae_tpu_torch.kernels.build import build
+from vqvae_tpu_torch.utils.profiling import span
 
 MAX_CHUNK_LAYERS = 10
 SEED, ACC, EMBED = 0, 1, 2
@@ -672,8 +673,10 @@ class Chunk(torch.autograd.Function):
     @staticmethod
     def forward(ctx, dils, mode, x, wemb, bemb, cond, gc, wff, vc, wr, br,
                 ws, tail, save_gates=True, windows=0):
-        h, skips, gall = chunk_forward(dils, mode, x, wemb, bemb, cond, gc,
-                                       wff, vc, wr, br, ws, tail, save_gates)
+        with span("model.decoder_stack.fwd"):
+            h, skips, gall = chunk_forward(dils, mode, x, wemb, bemb, cond,
+                                           gc, wff, vc, wr, br, ws, tail,
+                                           save_gates)
         ctx.dils, ctx.mode, ctx.windows = dils, mode, windows
         ctx.tail_meta = (tail.shape, tail.dtype)
         ctx.save_for_backward(x, wemb, bemb, cond, gc, wff, vc, wr, br, ws,
@@ -684,9 +687,11 @@ class Chunk(torch.autograd.Function):
     def backward(ctx, dhout, dskips):
         x, wemb, bemb, cond, gc, wff, vc, wr, br, ws, gall = \
             ctx.saved_tensors
-        dh, dcond, dgc, dwff, dvc, dwr, dbr, dws, dwemb, dbemb = \
-            chunk_backward(ctx.dils, ctx.mode, x, wemb, bemb, cond, gc, wff,
-                           vc, wr, br, ws, gall, dhout, dskips, ctx.windows)
+        with span("model.decoder_stack.bwd"):
+            dh, dcond, dgc, dwff, dvc, dwr, dbr, dws, dwemb, dbemb = \
+                chunk_backward(ctx.dils, ctx.mode, x, wemb, bemb, cond, gc,
+                               wff, vc, wr, br, ws, gall, dhout, dskips,
+                               ctx.windows)
         if ctx.mode == ACC:
             dtail = dskips                    # d(skips)/d(skips_in) = 1
         else:

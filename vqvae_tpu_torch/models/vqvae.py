@@ -25,6 +25,7 @@ from vqvae_tpu_torch.models.wavenet import (
     init_decoder,
     upsample_cond,
 )
+from vqvae_tpu_torch.utils.profiling import span
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator | None = None,
@@ -65,33 +66,38 @@ def forward(params, cfg: ModelConfig, batch: Batch, impl: str = "lax",
     this rank's time slice of its batch rows, the plain layer loop and
     plain head, and loss1 over that slice.  The encoder, the VQ and the
     upsampler run whole on every rank of the axis."""
-    z = apply_encoder(params["encoder"], cfg, batch.wav)   # [B, Tl, d] f32
-    e_st, e, idx = quantize(params["vq"], z, impl)
-    loss2, loss3 = vq_losses(z, e)
-    cond = upsample_cond(params["decoder"], cfg, e_st)     # [B, T, d]
+    with span("model.encoder"):
+        z = apply_encoder(params["encoder"], cfg, batch.wav)  # [B, Tl, d]
+    with span("model.vq"):
+        e_st, e, idx = quantize(params["vq"], z, impl)
+        loss2, loss3 = vq_losses(z, e)
+    with span("model.upsample"):
+        cond = upsample_cond(params["decoder"], cfg, e_st)     # [B, T, d]
     if mesh is not None and "seq" in mesh.mesh_dim_names:
         from vqvae_tpu_torch.parallel.sp_decoder import apply_decoder_sp, \
             note_model_axis, time_slice
         note_model_axis(mesh)
-        logits = apply_decoder_sp(params, cfg, batch.ids_in, cond,
-                                  batch.speaker, mesh, axis="seq")
+        with span("model.decoder_stack"):
+            logits = apply_decoder_sp(params, cfg, batch.ids_in, cond,
+                                      batch.speaker, mesh, axis="seq")
         targets = batch.targets[:, time_slice(mesh, batch.ids_in.shape[1],
                                               "seq")]
+        with span("model.head"):
+            loss1 = _cross_entropy(logits, targets)
     elif cfg.head_kernel in ("pallas", "xla"):
-        skips = decoder_skips(params["decoder"], cfg, batch.ids_in, cond,
-                              batch.speaker)
-        logits, targets = None, batch.targets
-        if cfg.head_kernel == "pallas":
-            from vqvae_tpu_torch.kernels.head_ce_cuda import head_ce_loss
-            loss1 = head_ce_loss(params["decoder"], cfg, skips, targets)
-        else:
-            logits = _head(params["decoder"], cfg, skips)  # [B, T, mu] f32
+        with span("model.decoder_stack"):
+            skips = decoder_skips(params["decoder"], cfg, batch.ids_in, cond,
+                                  batch.speaker)
+        with span("model.head"):
+            if cfg.head_kernel == "pallas":
+                from vqvae_tpu_torch.kernels.head_ce_cuda import head_ce_loss
+                loss1 = head_ce_loss(params["decoder"], cfg, skips,
+                                     batch.targets)
+            else:
+                logits = _head(params["decoder"], cfg, skips)  # [B, T, mu]
+                loss1 = _cross_entropy(logits, batch.targets)
     else:
         raise ValueError(f"unknown head_kernel {cfg.head_kernel!r}")
-    if logits is not None:
-        logz = torch.logsumexp(logits, dim=-1)
-        picked = logits.gather(-1, targets.long()[..., None])[..., 0]
-        loss1 = torch.mean(logz - picked)
     if cfg.ema:
         loss = loss1 + cfg.beta * loss3
     else:
@@ -104,3 +110,11 @@ def forward(params, cfg: ModelConfig, batch: Batch, impl: str = "lax",
                    "codebook_usage": used.mean(),
                    "code_perplexity": vq_mod.code_perplexity(idx, cfg.K)}
     return loss, (metrics, {"indices": idx, "z": z.detach()})
+
+
+def _cross_entropy(logits: torch.Tensor, targets: torch.Tensor
+                   ) -> torch.Tensor:
+    """Mean softmax cross-entropy of float32 logits against ids."""
+    logz = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, targets.long()[..., None])[..., 0]
+    return torch.mean(logz - picked)

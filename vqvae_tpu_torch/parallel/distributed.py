@@ -32,6 +32,7 @@ import torch
 import torch.distributed as dist
 
 from vqvae_tpu_torch.parallel import collectives
+from vqvae_tpu_torch.utils.profiling import span
 
 # seconds a collective may wait for its peers before the process fails
 TIMEOUT_S = 300
@@ -116,8 +117,9 @@ def put_global_batch(mesh, *host_arrays, device=None):
     device for the mesh's device type).  One array in, one tensor out."""
     if device is None:
         device = rank_device("cpu" if mesh is None else mesh.device_type)
-    out = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                for a in host_arrays)
+    with span("data.put"):
+        out = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                    for a in host_arrays)
     return out if len(out) > 1 else out[0]
 
 
