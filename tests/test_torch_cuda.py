@@ -186,6 +186,79 @@ def test_cluster_info_at_the_flagship_width(cuda, dtype):
     assert info["max_active_clusters"] >= 1
 
 
+def _thread_sessions(dec, codes, speaker, seed, push=16):
+    """A greedy and then a sampled session of ``codes`` through
+    ``KernelStreamSession``, ``push`` frames a push: [(waveform, final
+    decode state)] for each."""
+    import numpy as np
+    out = []
+    for greedy in (True, False):
+        s = dec.session([speaker], seed, 1.0, greedy)
+        pieces = [s.push(codes[None, a:a + push])
+                  for a in range(0, codes.size, push)]
+        pieces.append(s.close())
+        out.append((np.concatenate(pieces, 1), s._syn.state))
+    return out
+
+
+def test_sessions_on_four_streams_equal_one_after_another(cuda):
+    """Four threads, each on a CUDA stream of its own as the daemon's
+    connections are, run a greedy and a sampled 2 s session of the
+    flagship model at once: their waveforms (the ids through mu-law,
+    one to one) and final decode states equal the same sessions run one
+    after another, bit for bit, and the four threads take under 1.6x one
+    thread's sessions alone, so the rows' clusters run side by side."""
+    import threading
+    import time
+
+    import numpy as np
+
+    from vqvae_tpu_torch.infer.kernel_stream import KernelStreamDecoder
+    cfg = get_config("vctk-multi").model
+    params = init_model(cfg, torch.Generator().manual_seed(0), cuda)
+    dec = KernelStreamDecoder(params, cfg)
+    rng = np.random.default_rng(4)
+    frames = 2 * 16000 // cfg.hop
+    work = [(rng.integers(0, cfg.K, frames), 7 * i % cfg.n_speakers, 90 + i)
+            for i in range(4)]
+    _thread_sessions(dec, work[0][0][:40], 0, 1)   # builds, allocates
+    alone, want = [], []
+    for w in work:
+        t0 = time.perf_counter()
+        want.append(_thread_sessions(dec, *w))
+        alone.append(time.perf_counter() - t0)
+    got, errors = [None] * 4, []
+
+    def run(i):
+        try:
+            stream = torch.cuda.Stream(cuda)
+            stream.wait_stream(torch.cuda.default_stream(cuda))
+            with torch.cuda.stream(stream):
+                got[i] = _thread_sessions(dec, *work[i])
+        except Exception as exc:  # noqa: BLE001 — re-raised below
+            errors.append(exc)
+    ts = [threading.Thread(target=run, args=(i,)) for i in range(4)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=300)
+    together = time.perf_counter() - t0
+    assert not any(t.is_alive() for t in ts)
+    if errors:
+        raise errors[0]
+    for g, w in zip(got, want):
+        for (wav_g, st_g), (wav_w, st_w) in zip(g, w):
+            assert np.array_equal(wav_g, wav_w)
+            assert st_g.t0 == st_w.t0 == frames * cfg.hop
+            for a, b in zip(st_g[1:], st_w[1:]):
+                assert torch.equal(a, b)
+    one = float(np.median(alone))
+    print(f"four threads together {together:.3f} s, one alone {one:.3f} s "
+          f"({together / one:.3f}x)")
+    assert together < 1.6 * one, (together, alone)
+
+
 # ---- the training kernels (csrc/wavenet_train.cu, csrc/head_ce.cu) ----
 
 from vqvae_tpu_torch.kernels import head_ce_cuda as hc          # noqa: E402

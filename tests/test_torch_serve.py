@@ -6,6 +6,7 @@ daemon's encoder and the port's one-shot decode."""
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import jax
@@ -271,3 +272,146 @@ def test_session_rate_guard(server, port_params, monkeypatch):
     assert f"sustained session pushes: {srt}x at 4 frames/push" in log
     assert ("WARNING: sustained session pushes are below realtime" in log) \
         == (srt < 1.0)
+
+
+def _wire(wav):
+    """What the int16 PCM transport makes of a waveform."""
+    from vqvae_tpu_torch.cli.serve import float_to_pcm16, pcm16_to_float
+    return pcm16_to_float(float_to_pcm16(wav))
+
+
+def _local_daemon(codec, path):
+    """The port's socket loop on ``codec`` in a thread of this process,
+    so that a test can wrap what its connection threads call."""
+    from vqvae_tpu_torch.cli.serve import serve
+    th = threading.Thread(target=serve, args=(codec, path), daemon=True)
+    th.start()
+    deadline = time.time() + 60
+    while not os.path.exists(path):
+        assert time.time() < deadline and th.is_alive()
+        time.sleep(0.02)
+    return th
+
+
+def _clients(work, n):
+    """``work(i)`` for i < n, each on a thread of its own, at once."""
+    errors = []
+
+    def run(i):
+        try:
+            work(i)
+        except Exception as exc:  # noqa: BLE001 — re-raised below
+            errors.append(exc)
+    ts = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in ts)
+    if errors:
+        raise errors[0]
+
+
+@pytest.mark.parametrize("mode", ["greedy", "sampled"])
+def test_sessions_of_two_connections_decode_at_once(port_params, tmp_path,
+                                                    monkeypatch, mode):
+    """Two connections' sessions are inside the decode at the same time:
+    a two-party barrier in front of it breaks (10 s) where the daemon
+    serializes them, as a lock around the session ops did.  Each
+    session still equals its one-shot decode bit for bit, and the
+    ``stream.overlapped`` counter sees every pair."""
+    from vqvae_tpu_torch.cli.serve import Codec
+    from vqvae_tpu_torch.client import CodecClient as PortClient
+    from vqvae_tpu_torch.configs import get_config
+    from vqvae_tpu_torch.kernels import decode_cuda
+    from vqvae_tpu_torch.utils import profiling
+    codec = Codec(port_params, get_config("tiny"), chunk=4, device="cpu")
+    kw = {"greedy": {"greedy": True}, "sampled": {"temperature": 0.9}}[mode]
+    rng = np.random.default_rng(31)
+    plans = [(spk, seed, rng.integers(0, 128, 9))
+             for spk, seed in ((1, 5), (3, 8))]
+    want = [_wire(codec.decode(codes, spk, seed, **kw))
+            for spk, seed, codes in plans]
+    real = decode_cuda.generate_ids_resume
+    meet = threading.Barrier(2, timeout=10)
+
+    def both_inside(*a, **k):
+        meet.wait()
+        return real(*a, **k)
+    monkeypatch.setattr(decode_cuda, "generate_ids_resume", both_inside)
+    sock = str(tmp_path / "d.sock")
+    got = [None, None]
+
+    def client(i):
+        spk, seed, codes = plans[i]
+        with PortClient(socket_path=sock) as c:
+            h = c.open_stream(speaker=spk, seed=seed, **kw)
+            pieces = [h.push_codes(codes[:4]), h.push_codes(codes[4:])]
+            pieces.append(h.close())
+        got[i] = np.concatenate(pieces)
+    profiling.set_tracing(True)
+    try:
+        th = _local_daemon(codec, sock)
+        _clients(client, 2)
+        with PortClient(socket_path=sock) as c:
+            counters = c.stats()["counters"]
+            c.shutdown()
+        th.join(timeout=30)
+    finally:
+        profiling.set_tracing(False)
+        profiling.reset()
+    assert not th.is_alive()
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+    # three decodes a session (two pushes, the close), each met by the
+    # other's: the later of each pair began while the other was under way
+    assert counters["stream.overlapped"] >= 3
+    assert "serve.lock_acquisitions" not in counters
+
+
+def test_decode_requests_of_two_connections_never_overlap(port_params,
+                                                          tmp_path,
+                                                          monkeypatch):
+    """Whole-request ``decode`` ops share the engine's upsampler, so they
+    still take the daemon's lock: two connections' requests never sit
+    in the decode at once, and each equals its one-shot decode."""
+    from vqvae_tpu_torch.cli.serve import Codec
+    from vqvae_tpu_torch.client import CodecClient as PortClient
+    from vqvae_tpu_torch.configs import get_config
+    from vqvae_tpu_torch.kernels import decode_cuda
+    codec = Codec(port_params, get_config("tiny"), chunk=4, device="cpu")
+    rng = np.random.default_rng(32)
+    plans = [[rng.integers(0, 128, 5) for _ in range(3)] for _ in range(2)]
+    want = [[_wire(codec.decode(codes, 1, 7, greedy=i == 0))
+             for codes in plan] for i, plan in enumerate(plans)]
+    real = decode_cuda.generate_ids_resume
+    inside, calls, clashes = threading.Lock(), [], []
+
+    def alone(*a, **k):
+        calls.append(1)
+        if not inside.acquire(blocking=False):
+            clashes.append(1)
+            return real(*a, **k)
+        try:
+            time.sleep(0.1)   # a second request would arrive in here
+            return real(*a, **k)
+        finally:
+            inside.release()
+    monkeypatch.setattr(decode_cuda, "generate_ids_resume", alone)
+    sock = str(tmp_path / "d.sock")
+    got = [[], []]
+
+    def client(i):
+        with PortClient(socket_path=sock) as c:
+            for codes in plans[i]:
+                got[i].append(c.decode(codes, speaker=1, seed=7,
+                                       greedy=i == 0))
+    th = _local_daemon(codec, sock)
+    _clients(client, 2)
+    with PortClient(socket_path=sock) as c:
+        c.shutdown()
+    th.join(timeout=30)
+    assert not th.is_alive()
+    assert len(calls) == 6 and not clashes
+    for g, w in zip(got, want):
+        assert all(np.array_equal(a, b) for a, b in zip(g, w))

@@ -121,6 +121,47 @@ def test_threads_lose_no_count_and_no_span(monkeypatch):
     assert len(profiling.spans()) + got["spans.dropped"] == 500 * len(ts)
 
 
+def test_overlap_counts_blocks_entered_while_another_is_under_way():
+    """``overlap(name)``: blocks one after another count nothing; of two
+    threads inside at once the later counts once; many threads switching
+    every microsecond leave none under way; tracing off, it is inert."""
+    assert profiling.overlap("o") is profiling.NO_SPAN
+    profiling.set_tracing(True)
+    for _ in range(3):
+        with profiling.overlap("o"):
+            pass
+    assert "o" not in profiling.counters()
+    meet = threading.Barrier(2, timeout=10)
+
+    def pair():
+        with profiling.overlap("o"):
+            meet.wait()
+
+    def churn():
+        for _ in range(2000):
+            with profiling.overlap("o"):
+                pass
+    for work, n in ((pair, 2), (churn, os.cpu_count() + 2)):
+        ts = [threading.Thread(target=work) for _ in range(n)]
+        old = sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)
+        try:
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(timeout=120)
+        finally:
+            sys.setswitchinterval(old)
+        assert not any(t.is_alive() for t in ts)
+        if work is pair:
+            assert profiling.counters()["o"] == 1
+    got = profiling.counters()["o"]
+    assert got <= 1 + 2000 * (os.cpu_count() + 2)
+    with profiling.overlap("o"):   # nothing is left under way
+        pass
+    assert profiling.counters()["o"] == got
+
+
 def test_launch_counts_read_the_registry_and_the_kernel_modules(
         monkeypatch, codec):
     from vqvae_tpu_torch.cli import common
@@ -185,10 +226,11 @@ def _daemon(codec, tmp_path):
 
 
 def test_request_ids_and_parents_across_connection_threads(codec, tmp_path):
-    """Two clients stream at once through the daemon's socket loop: each
-    request's spans, on its connection's thread and under the lock
-    alike, share one request id; the engine's spans nest in
-    ``serve.handle``; the counters count the pushes and the lock."""
+    """Two clients stream at once through the daemon's socket loop and
+    each sends one whole-request ``decode``: each request's spans, on its
+    connection's thread, share one request id; the engine's spans nest
+    in ``serve.handle``; a push takes no lock (no ``serve.lock_wait``),
+    and the lock counters count the ``decode`` requests alone."""
     from vqvae_tpu_torch.client import CodecClient
     profiling.set_tracing(True)
     sock, th = _daemon(codec, tmp_path)
@@ -200,6 +242,7 @@ def test_request_ids_and_parents_across_connection_threads(codec, tmp_path):
             for i in range(2):
                 pushed.append(len(h.push_codes([seed, i + 1])))
             h.close()
+            c.decode([seed, 3], speaker=1, greedy=True)
     ts = [threading.Thread(target=client, args=(s,)) for s in (5, 9)]
     for t in ts:
         t.start()
@@ -217,7 +260,7 @@ def test_request_ids_and_parents_across_connection_threads(codec, tmp_path):
     per_request = collections.defaultdict(list)
     for r in rows:
         per_request[r["request"]].append(r)
-    want = {"serve.recv", "serve.parse", "serve.lock_wait", "serve.handle",
+    want = {"serve.recv", "serve.parse", "serve.handle",
             "stream.upload", "stream.upsample", "stream.decode",
             "stream.readback", "stream.pcm_encode", "serve.respond"}
     threads = set()
@@ -238,13 +281,16 @@ def test_request_ids_and_parents_across_connection_threads(codec, tmp_path):
     assert cnt["serve.requests.stream_open"] == 2
     assert cnt["stream.pushes"] == 4 and cnt["stream.frames_in"] == 8
     assert cnt["stream.samples_out"] == sum(pushed)
-    locked = sum(v for k, v in cnt.items()
-                 if k.startswith("serve.requests.")
-                 and k not in ("serve.requests.stats",
-                               "serve.requests.ping"))
+    locked = cnt["serve.requests.decode"]
+    assert locked == 2
     assert cnt["serve.lock_acquisitions"] == locked
     assert 0 <= cnt.get("serve.lock_waits", 0) <= locked
-    assert stats["spans"]["stream.decode"]["count"] >= 6   # pushes + closes
+    waits = [r for r in rows if r["name"] == "serve.lock_wait"]
+    assert len(waits) == locked
+    assert {h["op"] for h in handles
+            if h["request"] in {r["request"] for r in waits}} == {"decode"}
+    # pushes + closes + decodes
+    assert stats["spans"]["stream.decode"]["count"] >= 8
     assert stats["counters"]["launches"]["decode"] == 0   # the plain version
 
 

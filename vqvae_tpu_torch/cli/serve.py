@@ -44,13 +44,24 @@ refused by both engines, never routed to a plain decoder on the card.
 the decode kernel's launch count in this process.  The request's
 ``seed`` is the kernel's Philox key.
 
+Each connection is answered on a thread of its own and, on a CUDA
+device, runs its device work on a CUDA stream of its own.  The session
+ops (``stream_open``, ``stream_push``, ``stream_close``) touch only
+their session's state and the weights and table nobody writes, so they
+take no lock: the pushes of different connections decode side by side
+on the card, each row on its own 16-block cluster.  ``encode``,
+``decode`` and ``reconstruct`` share the engine's upsampler and take the
+daemon's lock.
+
 ``--spans`` turns the program's tracing on (``utils/profiling.py``):
 every request's spans (``serve.recv``, ``serve.parse``,
-``serve.lock_wait``, ``serve.handle``, ``stream.*``, ``serve.respond``)
-share a request id, and ``stats`` gains ``spans`` (per name: count,
-total ms, p50 and p95 over the span ring) and ``counters`` (requests
-by op, pushes, frames in, samples out, lock acquisitions and waits,
-spans dropped, kernel launches).
+``serve.lock_wait`` for the ops that lock, ``serve.handle``,
+``stream.*``, ``serve.respond``) share a request id, and ``stats`` gains
+``spans`` (per name: count, total ms, p50 and p95 over the span ring)
+and ``counters`` (requests by op, pushes, frames in, samples out, lock
+acquisitions and waits, ``stream.overlapped``: the pushes and closes
+whose decode began while another connection's was under way, spans
+dropped, kernel launches).
 
 ``--device cuda`` (the default) fails at startup without a GPU; the
 daemon never moves to the CPU by itself.  ``--device cpu`` runs the
@@ -84,7 +95,7 @@ from vqvae_tpu_torch.infer.kernel_stream import (
 from vqvae_tpu_torch.infer.streaming import StreamingSynthesizer
 from vqvae_tpu_torch.kernels import decode_cuda
 from vqvae_tpu_torch.utils import profiling
-from vqvae_tpu_torch.utils.profiling import counter, span
+from vqvae_tpu_torch.utils.profiling import counter, overlap, span
 
 ENGINES = ("kernel", "stream")
 
@@ -274,7 +285,10 @@ class _SynthSession:
 class StreamSession:
     """One live codec stream: codes (or PCM through the exact streaming
     encoder) in, waveform out as it finalizes.  Owned by the connection
-    that opened it; device work serializes under the daemon's lock."""
+    that opened it, whose thread and CUDA stream run all its work: it
+    writes only its own state (encoder, upsampler carry, decode state)
+    and reads the shared weights and table, so it takes no lock and
+    decodes beside other connections' sessions."""
 
     def __init__(self, codec: Codec, mode: str, speaker: int, seed: int,
                  temperature: float, greedy: bool):
@@ -311,7 +325,8 @@ class StreamSession:
             if "codes" not in req:
                 raise ValueError("codes-mode stream_push needs codes")
             codes = np.asarray(req["codes"], np.int64).reshape(1, -1)
-        wav = self.dec.push(codes)
+        with overlap("stream.overlapped"):
+            wav = self.dec.push(codes)
         counter("stream.pushes")
         counter("stream.frames_in", codes.shape[1])
         counter("stream.samples_out", wav.shape[1])
@@ -319,11 +334,12 @@ class StreamSession:
 
     def close(self) -> np.ndarray:
         pieces = []
-        if self.enc is not None:
-            tail = self.enc.flush()
-            if tail.size:
-                pieces.append(self.dec.push(tail))
-        pieces.append(self.dec.close())
+        with overlap("stream.overlapped"):
+            if self.enc is not None:
+                tail = self.enc.flush()
+                if tail.size:
+                    pieces.append(self.dec.push(tail))
+            pieces.append(self.dec.close())
         return np.concatenate(pieces, axis=1)
 
 
@@ -418,17 +434,21 @@ def handle(codec: Codec, req: dict, stats: Stats | None = None,
     return {"ok": False, "error": f"unknown op {op!r}"}
 
 
-LOCKFREE_OPS = ("ping", "stats")   # touch no device state
+# ops that take no lock: ping and stats touch no device state, and a
+# session op writes only its own session's (StreamSession)
+LOCKFREE_OPS = ("ping", "stats", "stream_open", "stream_push",
+                "stream_close")
 
 
 def answer(codec: Codec, req: dict, lock, stats: Stats,
            sessions: dict | None = None) -> dict:
     """One request -> one response, shared by every transport: anything
-    a request raises becomes an error response, device work is
-    serialized by ``lock``, and wall time (queueing included) lands in
-    ``stats``.  ``error_kind`` is 'client' for a bad request and
+    a request raises becomes an error response, the ops that use the
+    engine's shared upsampler (``encode``, ``decode``, ``reconstruct``)
+    are serialized by ``lock``, and wall time (queueing included) lands
+    in ``stats``.  ``error_kind`` is 'client' for a bad request and
     'internal' for an engine or device fault.  Its spans are
-    ``serve.lock_wait`` and ``serve.handle`` (under the lock)."""
+    ``serve.lock_wait`` (the ops that lock) and ``serve.handle``."""
     t0 = time.monotonic()
     op = req.get("op")
     if profiling.tracing():
@@ -461,12 +481,27 @@ def answer(codec: Codec, req: dict, lock, stats: Stats,
 MAX_REQUEST_BYTES = 64 << 20   # cap a request line / HTTP body
 
 
+def _connection_stream(device: torch.device):
+    """The CUDA stream of one connection's device work (None off CUDA).
+    A pool stream does not wait for the legacy default stream, so it
+    waits once here for what start-up queued there (the weights and the
+    upsampler's table).  Everything a connection's sessions allocate is
+    allocated, used and freed on its stream."""
+    if device.type != "cuda":
+        return None
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.default_stream(device))
+    return stream
+
+
 def _client_loop(codec: Codec, conn, lock, stop, stats: Stats) -> None:
-    """One connection: read lines, answer in order.  Its spans are
-    ``serve.recv`` (waiting for the line), ``serve.parse`` and
-    ``serve.respond``, with a new request id each line."""
+    """One connection: read lines, answer in order, on the connection's
+    own CUDA stream.  Its spans are ``serve.recv`` (waiting for the
+    line), ``serve.parse`` and ``serve.respond``, with a new request id
+    each line."""
     stats.connection(+1)
     sessions: dict = {}   # this connection's live streams
+    stream = _connection_stream(codec.device)
     try:
         with conn, conn.makefile("rwb") as f:
             while True:
@@ -496,7 +531,8 @@ def _client_loop(codec: Codec, conn, lock, stop, stats: Stats) -> None:
                         f.flush()
                         stop.set()
                         return
-                    resp = answer(codec, req, lock, stats, sessions)
+                    with torch.cuda.stream(stream):
+                        resp = answer(codec, req, lock, stats, sessions)
                 with span("serve.respond"):
                     f.write(json.dumps(resp).encode() + b"\n")
                     f.flush()

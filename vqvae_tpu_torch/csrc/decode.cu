@@ -94,6 +94,7 @@
 
 #include <climits>
 #include <cstdint>
+#include <mutex>
 #include <type_traits>
 
 namespace {
@@ -1074,10 +1075,15 @@ int launch(int mode, const void* emb_w, const void* emb_b, const void* wff,
   auto kernel = sh.R == 4 * kCluster && sh.S == 16 * kCluster
                     ? decode_kernel<T, 4, 16>
                     : decode_kernel<T, 0, 0>;
-  // the occupancy query runs once per instance and size
+  // the occupancy query runs once per instance and size.  Host threads
+  // launch at once (the daemon's connections, each on its own stream),
+  // so the cache and the launch hold one mutex: no other size's
+  // shared-memory attribute lands between this prepare and this launch
+  static std::mutex mutex;
   static decltype(kernel) last_kernel = nullptr;
   static size_t last_smem = 0;
   static int last_clusters = 0;
+  const std::lock_guard<std::mutex> hold(mutex);
   if (kernel != last_kernel || lay.bytes != last_smem) {
     int n = 0;
     const int e = prepare(kernel, lay.bytes, kResident, &n);

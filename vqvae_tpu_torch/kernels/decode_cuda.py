@@ -13,7 +13,8 @@ Tensors on the CPU run the plain version: a Python loop of
 ``models/wavenet.decoder_step`` with the same Philox4x32-10 Gumbel
 noise written in torch integer ops.  Tensors on a CUDA device launch
 the kernel, or raise; nothing falls back.  ``launches`` counts kernel
-launches.
+launches.  Threads may launch at once, each on its current CUDA stream
+(the serving daemon's connections do).
 
 The kernel decodes each batch row on one cluster of 16 thread blocks
 (``csrc/decode.cu``), so it takes R, S and mu that are multiples of 16
@@ -39,6 +40,7 @@ shards draw the noise of one call over the whole batch.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple, Tuple
 
 import torch
@@ -53,6 +55,7 @@ from vqvae_tpu_torch.models.wavenet import (
 )
 
 launches = 0   # kernel launches in this process (plain runs not counted)
+_launches_lock = threading.Lock()   # the daemon's connections launch at once
 
 TEACHER, GREEDY, SAMPLE = 0, 1, 2
 _CDTYPE = {torch.float32: 0, torch.bfloat16: 1}
@@ -320,7 +323,8 @@ def _launch(gp: GenParams, cfg: ModelConfig, mode: int, cond, gcond,
             B, T, R, S, d, mu, L, dils, state.t0, seed & _MASK,
             float(temperature), row0, stream)
     _raise_on(err, "decode kernel launch")
-    launches += 1
+    with _launches_lock:
+        launches += 1
     if mode == TEACHER:
         return out, None
     return out, DecodeState(state.t0 + T, bufs, pe0, x_last)

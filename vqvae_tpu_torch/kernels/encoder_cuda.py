@@ -48,6 +48,7 @@ plain versions, CUDA tensors launch the kernels or raise.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -57,6 +58,7 @@ from vqvae_tpu_torch.ops.conv import matmul, strided_conv_apply
 
 launches_fwd = 0   # encoder forward kernel calls in this process
 launches_bwd = 0   # encoder recompute backward kernel calls
+_launches_lock = threading.Lock()   # the daemon's pcm sessions run at once
 
 _CDTYPE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_WIDTH = 128    # the kernels' widest layer and latent
@@ -221,7 +223,8 @@ def fwd_kernel(h, wr, br, wp, bp, s: int = 2) -> torch.Tensor:
         a.stream())
     if err != 0:
         raise RuntimeError(f"encoder forward kernel failed: error {err}")
-    launches_fwd += 1
+    with _launches_lock:
+        launches_fwd += 1
     return z
 
 

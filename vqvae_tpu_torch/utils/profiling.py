@@ -8,9 +8,10 @@
 * ``StepTimer``: a smoothed wall-clock step rate, ticked only where the
   host has waited for the device.
 * The program's spans and counters: ``span(name)`` around the work of a
-  layer, ``counter(name, n)`` at the same boundaries, both inert until
-  ``set_tracing(True)``.  A span records ``(name, start, end, thread,
-  parent, request)`` into a bounded ring; under an active
+  layer, ``counter(name, n)`` at the same boundaries, ``overlap(name)``
+  counting the blocks entered while another thread's was under way, all
+  inert until ``set_tracing(True)``.  A span records ``(name, start,
+  end, thread, parent, request)`` into a bounded ring; under an active
   ``torch.profiler`` session it also enters ``record_function(name)``.
   ``export(trace_path)`` puts the ring's spans on an exported trace's
   clock (through the anchors ``set_tracing`` records on both clocks) and
@@ -58,8 +59,9 @@ _requests = itertools.count(1)
 _anchors = itertools.count(1)
 _counts: Dict[str, int] = {}
 _groups: Dict[str, Callable[[], dict]] = {}
+_inflight: Dict[str, int] = {}   # overlap(): blocks under way, by name
 _dropped = 0
-_lock = threading.Lock()  # _counts and _dropped: threads update both
+_lock = threading.Lock()  # _counts, _inflight, _dropped: threads update all
 
 
 class _Thread(threading.local):
@@ -146,6 +148,35 @@ def counter(name: str, n: int = 1) -> None:
     if _on:
         with _lock:
             _counts[name] = _counts.get(name, 0) + n
+
+
+class _Overlap:
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        with _lock:
+            n = _inflight.get(self.name, 0)
+            if n:
+                _counts[self.name] = _counts.get(self.name, 0) + 1
+            _inflight[self.name] = n + 1
+        return self
+
+    def __exit__(self, *exc):
+        with _lock:
+            _inflight[self.name] -= 1
+        return False
+
+
+def overlap(name: str):
+    """The block is under way as ``name`` while it runs: entering it
+    while another thread's block of that name is under way adds 1 to
+    the counter ``name``.  With tracing off: the shared no-op context."""
+    if not _on:
+        return NO_SPAN
+    return _Overlap(name)
 
 
 def begin_request() -> Optional[int]:
