@@ -2,9 +2,10 @@
 
 Two binning modes, as in the JAX package: ``"round"`` (symmetric
 rounding with a (mu-1) companding constant; decode is a fixed point of
-encode) and ``"chainer"`` (the reference's digitize-style bins).
-Every function is elementwise, so any chunking of a stream gives the
-same bits as the whole stream.
+encode) and ``"chainer"`` (the reference's digitize-style bins).  The
+WaveNet autoencoder's input takes magenta's binning instead
+(``mu_law_floor``).  Every function is elementwise, so any chunking of
+a stream gives the same bits as the whole stream.
 """
 
 from __future__ import annotations
@@ -57,3 +58,16 @@ def mu_law_round_trip(x: torch.Tensor, mu: int = 256,
     """Quantize-dequantize: the input distribution every encode path
     sees (training framing, one-shot encode, streaming encode)."""
     return mu_law_decode(mu_law_encode(x, mu, mode), mu, mode=mode)
+
+
+def mu_law_floor(x: torch.Tensor, mu: int = 256) -> torch.Tensor:
+    """magenta's ``utils.mu_law`` (NSynth): ``q = floor(mu/2 * sign(x)
+    ln(1 + (mu-1)|x|) / ln(mu))``, clipped to ``[-mu/2, mu/2 - 1]`` (it
+    reaches ``mu/2`` at ``|x| = 1`` exactly), returned as int32 class
+    ids ``q + mu/2`` in ``[0, mu)``."""
+    half = mu // 2
+    x = torch.clamp(x, -1.0, 1.0)
+    m = torch.tensor(float(mu - 1), dtype=x.dtype, device=x.device)
+    y = torch.sign(x) * torch.log1p(m * torch.abs(x)) / torch.log1p(m)
+    q = torch.clamp(torch.floor(y * half), -half, half - 1)
+    return (q + half).to(torch.int32)

@@ -8,7 +8,7 @@ import dataclasses
 import json
 import os
 
-from vqvae_tpu_torch.configs import Config, get_config, load_config
+from vqvae_tpu_torch.configs import Config, arch, get_config, load_config
 from vqvae_tpu_torch.models import init_model
 from vqvae_tpu_torch.train.checkpoint import (
     latest_step,
@@ -21,7 +21,8 @@ from vqvae_tpu_torch.utils import profiling
 def add_config_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--preset", default=None,
                    help="config preset (tiny/vctk-single/vctk-multi/"
-                        "fastgen/stretch); when omitted, the config "
+                        "fastgen/stretch; nsynth-h512 trains only); when "
+                        "omitted, the config "
                         "recorded by a training run (-m dir/config.json), "
                         "else vctk-multi")
     p.add_argument("--mulaw-mode", default=None,
@@ -86,10 +87,28 @@ def resolve_config(args) -> Config:
                       f" (preset '{cfg.name}')")
     cfg = cfg or get_config("vctk-multi")
     if getattr(args, "mulaw_mode", None):
+        vqvae_only(cfg, "--mulaw-mode")
         cfg = cfg.replace(model=dataclasses.replace(
             cfg.model, mulaw_mode=args.mulaw_mode))
     for spec in getattr(args, "set_overrides", []) or []:
         cfg = _parse_override(cfg, spec)
+    return cfg
+
+
+def vqvae_only(cfg: Config, what: str) -> None:
+    """Refuse in one line ``what``, which only the VQ-VAE has, for a
+    config of another architecture (``configs/presets.py::arch``): the
+    port trains those on their plain path and has no codec for them."""
+    if arch(cfg) != "vqvae":
+        raise SystemExit(f"{what}: '{cfg.name}' is a {arch(cfg)} model, "
+                         "not a VQ-VAE: the port only trains it, on its "
+                         "plain stack (no kernel switch, no decode path)")
+
+
+def codec_config(args, tool: str) -> Config:
+    """``resolve_config`` for a codec tool: a VQ-VAE's config only."""
+    cfg = resolve_config(args)
+    vqvae_only(cfg, tool)
     return cfg
 
 

@@ -27,9 +27,9 @@ from vqvae_tpu_torch.audio.wav_io import save_wav
 from vqvae_tpu_torch.cli.common import (
     add_config_args,
     add_device_arg,
+    codec_config,
     load_params,
     print_launch_counts,
-    resolve_config,
     resolve_device,
     speaker_ids,
 )
@@ -69,7 +69,7 @@ def main(argv=None) -> None:
             raise SystemExit(f"--mesh-data {args.mesh_data}: only {have} "
                              f"CUDA device{'s' if have > 1 else ''} here "
                              "(--device cpu splits the rows on the CPU)")
-    cfg = resolve_config(args)
+    cfg = codec_config(args, "vqvae-torch-decode")
     raw = np.load(args.input)
     if raw.ndim not in (1, 2):   # p.error, not assert: python -O
         p.error(f"codes must be 1-D or 2-D, got {raw.shape}")

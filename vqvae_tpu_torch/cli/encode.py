@@ -26,10 +26,10 @@ from vqvae_tpu_torch.audio.wav_io import load_wav, trim_silence
 from vqvae_tpu_torch.cli.common import (
     add_config_args,
     add_device_arg,
+    codec_config,
     load_params,
     output_names,
     print_launch_counts,
-    resolve_config,
     resolve_device,
 )
 from vqvae_tpu_torch.infer.fastgen import encode_to_codes
@@ -76,7 +76,7 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = resolve_config(args)
+    cfg = codec_config(args, "vqvae-torch-encode")
     params = load_params(args.model, cfg, device)
     all_codes = [_encode_one(params, cfg, path, args.no_trim, device)
                  for path in args.input]

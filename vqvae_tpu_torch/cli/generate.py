@@ -21,10 +21,10 @@ from vqvae_tpu_torch.audio.wav_io import load_wav, save_wav, trim_silence
 from vqvae_tpu_torch.cli.common import (
     add_config_args,
     add_device_arg,
+    codec_config,
     load_params,
     output_names,
     print_launch_counts,
-    resolve_config,
     resolve_device,
     speaker_ids,
 )
@@ -79,7 +79,7 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = resolve_config(args)
+    cfg = codec_config(args, "vqvae-torch-generate")
     wavs = []
     for path in args.input:
         w = load_wav(path, cfg.data.sr)

@@ -26,10 +26,10 @@ import torch.distributed as dist
 from vqvae_tpu_torch.cli.common import (
     add_config_args,
     add_device_arg,
+    codec_config,
     load_params,
     make_dataset,
     print_launch_counts,
-    resolve_config,
     resolve_device,
 )
 from vqvae_tpu_torch.parallel.distributed import (
@@ -68,7 +68,7 @@ def main(argv=None) -> None:
     device = resolve_device(args.device)
     initialize_from_env(device)
     device = rank_device(device)
-    cfg = resolve_config(args)
+    cfg = codec_config(args, "vqvae-torch-score")
     tr = {k: v for k, v in (("batch_size", args.batch_size),
                             ("eval_batches", args.eval_batches),
                             ("mesh_model", args.mesh_model),

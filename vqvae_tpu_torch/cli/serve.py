@@ -86,7 +86,7 @@ import numpy as np
 import torch
 
 from vqvae_tpu_torch.cli.common import add_config_args, add_device_arg, \
-    load_params, resolve_config, resolve_device
+    codec_config, load_params, resolve_device
 from vqvae_tpu_torch.infer.enc_streaming import StreamingEncoder
 from vqvae_tpu_torch.infer.kernel_stream import (
     KernelStreamDecoder,
@@ -720,7 +720,7 @@ def main() -> None:
         p.error("exactly one of --socket, --tcp or --http is required")
 
     device = resolve_device(args.device)   # fail before loading weights
-    cfg = resolve_config(args)
+    cfg = codec_config(args, "vqvae-torch-serve")
     params = load_params(args.model, cfg, device)
     engine = "kernel" if args.engine == "auto" else args.engine
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"

@@ -27,9 +27,9 @@ from vqvae_tpu_torch.audio.wav_io import load_wav, save_wav
 from vqvae_tpu_torch.cli.common import (
     add_config_args,
     add_device_arg,
+    codec_config,
     load_params,
     print_launch_counts,
-    resolve_config,
     resolve_device,
     speaker_ids,
 )
@@ -61,7 +61,7 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = resolve_config(args)
+    cfg = codec_config(args, "vqvae-torch-stream")
     m, sr = cfg.model, cfg.data.sr
     spk = speaker_ids([args.speaker], 1, cfg, device)
     params = load_params(args.model, cfg, device)

@@ -26,7 +26,10 @@ the loss curves when matplotlib is installed.  ``--profile N`` traces N
 steps with ``torch.profiler`` into ``<out>/profile`` (a Chrome trace that
 holds the program's spans, ``utils/profiling.py``).
 A mesh larger than the world (``--mesh-model 2`` in one process) is
-refused before anything is written.
+refused before anything is written.  ``--preset nsynth-h512`` trains
+NSynth's WaveNet autoencoder (``models/wavenet_ae.py``) on one device
+through the same step, loader and checkpoints; the kernel switches are
+the VQ-VAE's and refused for it.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from vqvae_tpu_torch.cli.common import (
     print_launch_counts,
     resolve_config,
     resolve_device,
+    vqvae_only,
 )
 from vqvae_tpu_torch.parallel.distributed import initialize_from_env, \
     shutdown
@@ -110,6 +114,7 @@ def main(argv=None) -> None:
                             ("bwd_time_windows", args.bwd_windows))
           if v is not None}
     if mo:
+        vqvae_only(cfg, "--decoder-kernel, --bwd-windows")
         cfg = cfg.replace(model=dataclasses.replace(cfg.model, **mo))
     dataset, valid = make_dataset(cfg, args.dataset, args.root)
 

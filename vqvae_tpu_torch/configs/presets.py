@@ -198,14 +198,34 @@ PRESETS = {
 
 
 def get_config(name: str = "default", **overrides) -> Config:
-    cfg = PRESETS[name]()
+    """A preset of ``PRESETS`` (the JAX package's table) or of the
+    WaveNet autoencoder's (``configs/wavenet_ae.py``)."""
+    if name in PRESETS:
+        cfg = PRESETS[name]()
+    else:
+        from vqvae_tpu_torch.configs.wavenet_ae import AE_PRESETS
+        cfg = AE_PRESETS[name]()
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     return cfg
 
 
+def arch_models() -> dict:
+    """Each architecture's model config class, by the name a saved
+    config gives it under ``"arch"``."""
+    from vqvae_tpu_torch.configs.wavenet_ae import WaveNetAEConfig
+    return {"vqvae": ModelConfig, "wavenet_ae": WaveNetAEConfig}
+
+
+def arch(cfg) -> str:
+    """The architecture of ``cfg`` (a ``Config`` or a model config)."""
+    model = getattr(cfg, "model", cfg)
+    return next(k for k, c in arch_models().items() if isinstance(model, c))
+
+
 def config_to_json(cfg: Config) -> str:
-    return json.dumps(dataclasses.asdict(cfg), indent=2, sort_keys=True)
+    return json.dumps(dict(dataclasses.asdict(cfg), arch=arch(cfg)),
+                      indent=2, sort_keys=True)
 
 
 def _from_dict(cls, d: dict):
@@ -217,7 +237,8 @@ def config_from_json(text: str) -> Config:
     d = json.loads(text)
     return Config(
         data=_from_dict(DataConfig, d.get("data", {})),
-        model=_from_dict(ModelConfig, d.get("model", {})),
+        model=_from_dict(arch_models()[d.get("arch", "vqvae")],
+                         d.get("model", {})),
         train=_from_dict(TrainConfig, d.get("train", {})),
         name=d.get("name", "default"),
     )

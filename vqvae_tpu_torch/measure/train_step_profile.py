@@ -140,6 +140,7 @@ CUSTOM_NODES = {
     "CondUpsampleBackward": ("kernels/upsample_cuda.py", "backward"),
     "_TakeRowsBackward": ("ops/embed.py", "backward"),
     "_HaloShiftBackward": ("parallel/sharded_conv.py", "backward"),
+    "_TapConvBackward": ("models/wavenet_ae.py", "backward"),
 }
 
 # hand kernels by source, where no launch was recorded

@@ -64,7 +64,8 @@ def save_checkpoint(directory: str, state, keep: int = 5) -> None:
                     "params": {k: v.detach() for k, v in
                                flat_state(state.params).items()},
                     "opt": opt,
-                    "vq_state": {"count": vq.count, "sum": vq.sum}}, tmp)
+                    "vq_state": None if vq is None else
+                    {"count": vq.count, "sum": vq.sum}}, tmp)
         os.replace(tmp, path)
         for step in _steps(directory)[:-max(1, keep)]:
             os.remove(_path(directory, step))
@@ -84,7 +85,7 @@ def restore_checkpoint(directory: str, state, step: int | None = None):
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {directory}")
-    dev = state.vq_state.count.device
+    dev = next(state.params.parameters()).device
     ck = torch.load(_path(directory, step), map_location=dev,
                     weights_only=True)
     params = flat_state(state.params)
@@ -94,8 +95,9 @@ def restore_checkpoint(directory: str, state, step: int | None = None):
     with torch.no_grad():
         for k, t in params.items():
             t.copy_(ck["params"][k])
-    vq = VQState(count=ck["vq_state"]["count"].to(dev),
-                 sum=ck["vq_state"]["sum"].to(dev))
+    vq = None if ck["vq_state"] is None else VQState(
+        count=ck["vq_state"]["count"].to(dev),
+        sum=ck["vq_state"]["sum"].to(dev))
     par = state.par
     if par is None:
         state.opt.load_state_dict(ck["opt"])

@@ -127,7 +127,8 @@ def train(cfg: Config, dataset, out_dir: Optional[str] = None,
             do_eval = (evaluator is not None
                        and step % cfg.train.eval_every == 0)
             if do_log or do_eval:
-                rec = {k: float(v) for k, v in metrics.items()}
+                rec = {k: float(v) for k, v in metrics.items()
+                       if v.dim() == 0}
                 _sync(device)
                 # closed before the evaluator runs, so validation never
                 # deflates the training rate

@@ -251,7 +251,8 @@ class MetricsLogger:
                         else f"{rec[k]:14.5f}" for k in keys), flush=True)
 
     def plot(self) -> None:
-        """Loss curves as ``loss.png`` beside the log; nothing without
+        """Loss curves as ``loss.png`` beside the log (loss1..3, or the
+        total for a model that logs no parts); nothing without
         matplotlib."""
         try:
             import matplotlib
@@ -264,11 +265,13 @@ class MetricsLogger:
             for line in f:
                 rec = json.loads(line)
                 steps.append(rec["iteration"])
-                for k in ("loss1", "loss2", "loss3"):
+                for k in ("loss1", "loss2", "loss3", "loss"):
                     if k in rec:
                         series.setdefault(k, []).append(rec[k])
         if not steps:
             return
+        if len(series) > 1:     # the total only where it has no parts
+            series.pop("loss", None)
         fig, ax = plt.subplots()
         for k, v in series.items():
             ax.plot(steps[:len(v)], v, label=k)

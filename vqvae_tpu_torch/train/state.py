@@ -13,6 +13,10 @@ On a mesh, ``par`` is the mesh's side of the run
 (``parallel/step.py::MeshStep``): Adam then updates the shards this rank
 owns under ``parallel/mesh.py::param_shardings``, and ``vq_state`` holds
 this rank's K rows of the EMA state.  Without a mesh it is None.
+
+The WaveNet autoencoder (a ``WaveNetAEConfig`` model) has no VQ state
+(``vq_state`` None) and one Adam group over every leaf; it trains on one
+device.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from vqvae_tpu_torch.configs import Config
+from vqvae_tpu_torch.configs import Config, WaveNetAEConfig
 from vqvae_tpu_torch.models import init_model, init_vq_state
 from vqvae_tpu_torch.models.vq import VQState
 
@@ -32,7 +36,7 @@ class TrainState:
     step: int
     params: torch.nn.Module
     opt: torch.optim.Optimizer
-    vq_state: VQState
+    vq_state: Optional[VQState]      # None for the WaveNet autoencoder
     par: Optional[object] = None     # parallel/step.py::MeshStep
 
 
@@ -56,6 +60,8 @@ def create_train_state(cfg: Config, device="cpu", params=None,
     """Fresh state; ``params`` (a trainable ``ParamTree``) defaults to
     the port's seeded init on the CPU generator ``cfg.train.seed``, the
     same on every rank of a ``mesh``."""
+    if isinstance(cfg.model, WaveNetAEConfig):
+        return _wavenet_ae_state(cfg, device, params, mesh)
     if params is None:
         params = init_model(cfg.model,
                             torch.Generator().manual_seed(cfg.train.seed),
@@ -69,3 +75,18 @@ def create_train_state(cfg: Config, device="cpu", params=None,
     return TrainState(step=0, params=params,
                       opt=make_optimizer(cfg, params, par),
                       vq_state=vq_state, par=par)
+
+
+def _wavenet_ae_state(cfg: Config, device, params, mesh) -> TrainState:
+    if mesh is not None:
+        raise ValueError("the WaveNet autoencoder trains on one device "
+                         "(no mesh)")
+    from vqvae_tpu_torch.models.wavenet_ae import init_wavenet_ae
+    if params is None:
+        params = init_wavenet_ae(
+            cfg.model, torch.Generator().manual_seed(cfg.train.seed),
+            device, trainable=True)
+    t = cfg.train
+    opt = torch.optim.Adam(params.parameters(), lr=t.lr,
+                           betas=(t.adam_b1, t.adam_b2), eps=t.adam_eps)
+    return TrainState(step=0, params=params, opt=opt, vq_state=None)

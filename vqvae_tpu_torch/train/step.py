@@ -8,6 +8,10 @@ the ranks before Adam, the EMA and the restart see the global batch, the
 updated shards are gathered into the full weights, and the metrics are
 the global batch's; the decoder stack runs sequence-parallel when the
 mesh has a 'seq' axis.
+
+A config whose model is the WaveNet autoencoder's
+(``configs/wavenet_ae.py``) takes ``_wavenet_ae_step``: the same phases
+and spans with its own framing and forward, and no codebook.
 """
 
 from __future__ import annotations
@@ -16,9 +20,9 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from vqvae_tpu_torch.audio.framing import frame_batch
-from vqvae_tpu_torch.configs import Config
-from vqvae_tpu_torch.models import forward
+from vqvae_tpu_torch.audio.framing import frame_batch, frame_scalar
+from vqvae_tpu_torch.configs import Config, WaveNetAEConfig
+from vqvae_tpu_torch.models import forward, wavenet_ae
 from vqvae_tpu_torch.models.vq import (
     ema_update,
     restart_dead_codes,
@@ -38,7 +42,10 @@ def train_step(state: TrainState, wav: torch.Tensor, speaker: torch.Tensor,
     """One update in place.  wav ``[B, length+1]`` raw float slices,
     speaker ``[B]``, both on the training device (on a mesh: this rank's
     rows); ``impl`` picks the VQ search.  Returns the metrics as 0-d
-    tensors (reading them synchronises with the device)."""
+    tensors, the autoencoder's with ``crop_loss`` besides (reading them
+    synchronises with the device)."""
+    if isinstance(cfg.model, WaveNetAEConfig):
+        return _wavenet_ae_step(state, wav, cfg)
     mcfg = cfg.model
     par = state.par
     mesh = None if par is None else par.mesh
@@ -64,6 +71,26 @@ def train_step(state: TrainState, wav: torch.Tensor, speaker: torch.Tensor,
             par.gather_params()
             from vqvae_tpu_torch.parallel.step import global_metrics
             metrics = global_metrics(mesh, metrics, aux["indices"], mcfg.K)
+    state.step += 1
+    return metrics
+
+
+def _wavenet_ae_step(state: TrainState, wav: torch.Tensor, cfg: Config
+                     ) -> Dict[str, torch.Tensor]:
+    """One update of the WaveNet autoencoder (speaker ids unread); its
+    metrics also hold each crop's loss, ``crop_loss [B]``."""
+    with span("train.step"):
+        with span("train.frame"):
+            batch = frame_scalar(wav, cfg.model.mu)
+        with span("train.zero_grad"):
+            state.opt.zero_grad(set_to_none=True)
+        with span("train.forward"):
+            loss, metrics = wavenet_ae.forward(state.params, cfg.model,
+                                               batch)
+        with span("train.backward"):
+            loss.backward()
+        with span("train.optimizer"):
+            state.opt.step()
     state.step += 1
     return metrics
 
@@ -107,6 +134,10 @@ def eval_step(params, wav: torch.Tensor, speaker: torch.Tensor,
               ) -> Dict[str, torch.Tensor]:
     """Validation forward: the same forward, no update; on a ``mesh``
     (this rank's rows) the global batch's metrics."""
+    if isinstance(cfg.model, WaveNetAEConfig):
+        loss, _ = wavenet_ae.forward(params, cfg.model,
+                                     frame_scalar(wav, cfg.model.mu))
+        return {"loss": loss}
     batch = frame_batch(wav, speaker, cfg.model.mu, cfg.model.mulaw_mode)
     _, (metrics, aux) = forward(params, cfg.model, batch, impl, mesh)
     if mesh is not None:
