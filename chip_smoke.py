@@ -10,7 +10,7 @@ nonzero:
 
 1. device  — the card's name and power limit (nvidia-smi); CUDA must be
              available; TF32 off for the plain references.
-2. build   — compile the port's eight CUDA sources
+2. build   — compile the port's nine CUDA sources
              (``vqvae_tpu_torch/csrc/*.cu``), one nvcc each, side by side,
              and the native audio library (``native/audio.cpp``, g++).
 3. kernel  — the decode kernel (one 16-block cluster per row) against
@@ -226,7 +226,21 @@ nonzero:
              and its last JSON line holds only finite numbers; each line
              is printed.
 
-They run in the order 1-9, 12, 13, 15, 18, 17's timing and start, 10
+19. nsynth  — NSynth's autoencoder (``nsynth-h512``): the decoder's gate
+             kernels (``kernels/wavenet_ae_cuda.py``, ``ae_gate_fwd`` and
+             ``ae_gate_bwd``) against their plain versions at the
+             training shape B=48, T=6144, R=512, hop 512, with P = 1024
+             and 2 rows of padding a crop (dilations 512 and 1), float32
+             (1e-4 of max) and bfloat16 (2 ulps, 2^-6 of max): z, the
+             gate input's gradient, the condition's frame sums; the
+             backward's z the forward's bit for bit, its pad rows zero, a
+             second call the same bits; each kernel timed in bf16 beside
+             its plain version and its bound by bytes; then one training
+             step at B=48 x 6144 with both launch counters zeroed just
+             before it, which must read 30 + 30, and 3 more steps timed
+             with the peak memory.
+
+They run in the order 1-9, 12, 13, 19, 15, 18, 17's timing and start, 10
 and 14 beside the quality check, 17's checks, 11, 16: every phase that
 times the card runs alone on it.
 The train-time phases also print each step's share of the bf16 peak by
@@ -1955,6 +1969,132 @@ def enc_kernel_phase(device, errs):
     return out
 
 
+def ae_gate_work(B, T, P, hop, R, es, backward):
+    """(flops, bytes) of one call of the autoencoder's gate kernel
+    (``csrc/wavenet_ae.cu``): the forward reads u's B*T interior rows and
+    the frame's condition and writes z; the backward reads g_z, u and
+    the condition and writes G (every row of ``[B*(T+P), 2R]``), z and
+    the float32 frame sums.  Its elementwise operations are left out
+    (under 1% of the byte time)."""
+    N, C = B * T, B * (T // hop) * 2 * R
+    if not backward:
+        return 0, es * (N * 2 * R + C + N * R)
+    return 0, es * (N * R + N * 2 * R + C + B * (T + P) * 2 * R
+                    + N * R) + 4 * C
+
+
+def nsynth_phase(device, errs):
+    """NSynth's autoencoder (``--preset nsynth-h512``): both gate kernels
+    of ``kernels/wavenet_ae_cuda.py`` against their plain versions at the
+    training shape (B=48, T=6144, R=512, hop 512) with P = 1024 and 2
+    (dilations 512 and 1), float32 and bfloat16; then one training step
+    at B=48 x 6144 whose launch counters, zeroed just before, read 30 +
+    30; each kernel timed beside its plain version and its bound.
+    Returns the per-kernel entries (bf16, P=1024)."""
+    import torch
+    from vqvae_tpu_torch.configs import get_config
+    from vqvae_tpu_torch.kernels import wavenet_ae_cuda as aek
+    from vqvae_tpu_torch.train.state import create_train_state
+    from vqvae_tpu_torch.train.step import train_step
+    cfg = get_config("nsynth-h512")
+    mc = cfg.model
+    B, T = cfg.train.batch_size, cfg.data.length
+    R, hop, k = mc.width, mc.ae_hop_length, mc.filter_length
+    F = T // hop
+    # float32: the same float32 gate in both, other sums only; bf16: one
+    # rounding in both, so 2 bf16 ulps of the largest magnitude
+    tols = ((torch.float32, 1e-4), (torch.bfloat16, 2.0 ** -6))
+    out = {}
+    for P in ((k - 1) * max(mc.dilations), (k - 1) * min(mc.dilations)):
+        for cdt, tol in tols:
+            t0 = time.monotonic()
+            g = torch.Generator(device=device).manual_seed(P)
+            u = (torch.randn(B * (T + P) - P, 2 * R, generator=g,
+                             device=device) * 2).to(cdt)
+            cond = torch.randn(B, F, 2 * R, generator=g,
+                               device=device).to(cdt)
+            gz = torch.randn(B * T, R, generator=g, device=device).to(cdt)
+            z = aek.gate_fwd_kernel(u, cond, B, T, P, hop)
+            rf = compare("ae_gate_fwd", [z],
+                         [aek.gate_fwd_plain(u, cond, B, T, P, hop)], tol,
+                         errs)
+            got = aek.gate_bwd_kernel(gz, u, cond, B, T, P, hop)
+            want = aek.gate_bwd_plain(gz, u, cond, B, T, P, hop)
+            rb = compare("ae_gate_bwd", got, want, tol, errs)
+            G, z2, gc = got
+            check(torch.equal(z2, z), f"ae_gate_bwd {cdt} P={P}: its z is "
+                  "not the forward's bit for bit")
+            pad = torch.ones(G.shape[0], dtype=torch.bool, device=device)
+            aek.rows(pad[:, None], B, T, P).fill_(False)
+            check(not G[pad].any(), f"ae_gate_bwd {cdt} P={P}: a pad row "
+                  "of the gate input's gradient is not zero")
+            again = aek.gate_bwd_kernel(gz, u, cond, B, T, P, hop)
+            check(all(torch.equal(a, b) for a, b in zip(again, got)),
+                  f"ae_gate_bwd {cdt} P={P}: a second call gave other bits")
+            del got, want, again, G, z2, pad
+            if cdt == torch.bfloat16:
+                es = u.element_size()
+                for name, kern, plain, bwd in (
+                        ("ae_gate_fwd",
+                         lambda: aek.gate_fwd_kernel(u, cond, B, T, P, hop),
+                         lambda: aek.gate_fwd_plain(u, cond, B, T, P, hop),
+                         False),
+                        ("ae_gate_bwd",
+                         lambda: aek.gate_bwd_kernel(gz, u, cond, B, T, P,
+                                                     hop),
+                         lambda: aek.gate_bwd_plain(gz, u, cond, B, T, P,
+                                                    hop), True)):
+                    ms_, pms = cuda_ms(kern, reps=20), cuda_ms(plain)
+                    bms, bby = bound(*ae_gate_work(B, T, P, hop, R, es, bwd))
+                    if name not in out:
+                        out[name] = dict(ms=ms_, plain_ms=pms, bound_ms=bms,
+                                         bound_by=bby, library_ms=None)
+                    say("nsynth", t0, f"{name} bfloat16 P={P}: kernel "
+                        f"{ms_:.4f} ms, plain {pms:.3f} ms, bound "
+                        f"{bms:.4f} ms ({bby}: {100 * bms / ms_:.1f}% of "
+                        f"the kernel's time)")
+            torch.cuda.synchronize()
+            say("nsynth", t0, f"{str(cdt)[6:]} u [{B}*({T}+{P})-{P}, "
+                f"{2 * R}], cond [{B}, {F}, {2 * R}]: z max rel err "
+                f"{rf:.3g}, backward (G, z, frame sums) {rb:.3g} <= {tol:.3g}"
+                f"; the backward's z the forward's bit for bit, its {B * P} "
+                f"pad rows zero, a second call the same bits")
+            del u, cond, gz, z
+            torch.cuda.empty_cache()
+
+    # one training step at the cell's shape: 30 launches of each kernel
+    t0 = time.monotonic()
+    state = create_train_state(cfg, device)
+    g = torch.Generator(device=device).manual_seed(7)
+    wav = torch.rand(B, T + 1, generator=g, device=device) * 1.8 - 0.9
+    spk = torch.zeros(B, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    aek.launches_fwd = aek.launches_bwd = 0
+    met = train_step(state, wav, spk, cfg)
+    torch.cuda.synchronize()
+    n = (aek.launches_fwd, aek.launches_bwd)
+    L = mc.num_layers
+    check(n == (L, L), f"nsynth-h512 step: the gate kernels launched "
+          f"{n[0]} + {n[1]} times, not {L} + {L}")
+    check(bool(torch.isfinite(met["loss"])), "nsynth-h512 step: the loss "
+          "is not finite")
+    t1 = time.perf_counter()
+    for _ in range(3):
+        train_step(state, wav, spk, cfg)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t1) / 3
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    say("nsynth", t0, f"nsynth-h512 train step B={B} x {T}: gate kernels "
+        f"launched {n[0]} + {n[1]}, loss {float(met['loss']):.4f}; "
+        f"{step_s:.4f} s a step (3 steps), peak {peak:.2f} GiB")
+    for name, c in zip(("ae_gate_fwd", "ae_gate_bwd"), n):
+        out[name]["launches"] = c
+    del state, wav, met
+    torch.cuda.empty_cache()
+    return out
+
+
 def run_cli(name, *args, timeout=600):
     """One ``python3 -m vqvae_tpu_torch.cli.<name>`` run as a user runs
     it: (its kernel launch counts, its stdout)."""
@@ -3081,7 +3221,8 @@ def main():
                "vqvae_encoder": "encoder.cu",
                "vqvae_upsample": "upsample.cu",
                "vqvae_decode_chain": "decode_chain.cu",
-               "vqvae_embed": "embed.cu"}
+               "vqvae_embed": "embed.cu",
+               "vqvae_wavenet_ae": "wavenet_ae.cu"}
     from vqvae_tpu_torch.native import bindings
     with ThreadPoolExecutor(max_workers=len(sources) + 1) as pool:
         # one nvcc per source, all started together, and g++ for the
@@ -3134,6 +3275,7 @@ def main():
     timing = train_time_phase(train_cfg, device, errs)
     timing.update(train_time_vctk_phase(device, errs))
     timing.update(enc_kernel_phase(device, errs))
+    ae_gates = nsynth_phase(device, errs)
     probe = probes_phase(1e3 * ms / T_req)
     tools_phase()
     # the quality check's training is host-bound and long: it runs beside
@@ -3198,6 +3340,12 @@ def main():
         kernels.append({"name": name, "route": "cuda",
                         "source": f"vqvae_tpu_torch/csrc/{src}",
                         "replaces": replaces, **probe[name]})
+    # the autoencoder's gate replaces no TPU kernel: JAX has no such model
+    for name in ("ae_gate_fwd", "ae_gate_bwd"):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "vqvae_tpu_torch/csrc/wavenet_ae.cu",
+                        "replaces": None, "max_abs_err": errs[name],
+                        **ae_gates[name]})
     kernels.append(quality_kernel)
     mesh_phase(device, smi)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1242,3 +1242,155 @@ def test_reconstruction_quality_cuda(cuda, tmp_path):
                             engines=("lax", "pallas-stream"),
                             speaker_matrix=True, device=cuda)
     assert quality_gate(rec) == [], rec
+
+
+# ---- the WaveNet autoencoder's gate kernels (csrc/wavenet_ae.cu) ----
+
+from _ae_layers import per_op_layers                             # noqa: E402
+from vqvae_tpu_torch.kernels import wavenet_ae_cuda as aek      # noqa: E402
+
+# (B, T, P, hop, R): nsynth-h512's layers at dilations 512 and 1, and an
+# odd shape (3 crops of 5 frames of 7, R not a multiple of a block's 64)
+GATE_SHAPES = [(48, 6144, 1024, 512, 512), (48, 6144, 2, 512, 512),
+               (3, 35, 10, 7, 24)]
+
+
+def _gate_inputs(B, T, P, hop, R, cdt, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(cdt)
+    return (rn(B * (T + P) - P, 2 * R, scale=2.0),
+            rn(B, T // hop, 2 * R), rn(B * T, R))
+
+
+def _gate_tol(cdt):
+    return 3e-2 if cdt == torch.bfloat16 else 1e-4
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,P,hop,R", GATE_SHAPES)
+def test_ae_gate_kernels_vs_plain(cuda, B, T, P, hop, R, cdt):
+    """Both gate kernels against their plain versions: z, the gate
+    input's gradient in the conv's padded rows, the condition's frame
+    sums (also against the frame sums of the kernel's own rounded
+    gradient), the backward's z bit for bit the forward's, and one
+    launch each."""
+    u, cond, gz = _gate_inputs(B, T, P, hop, R, cdt, cuda)
+    f0, b0 = aek.launches_fwd, aek.launches_bwd
+    z = aek.gate_fwd_kernel(u, cond, B, T, P, hop)
+    G, z2, gc = aek.gate_bwd_kernel(gz, u, cond, B, T, P, hop)
+    torch.cuda.synchronize()
+    assert (aek.launches_fwd, aek.launches_bwd) == (f0 + 1, b0 + 1)
+    tol = _gate_tol(cdt)
+    assert _rel_err(z, aek.gate_fwd_plain(u, cond, B, T, P, hop)) <= tol
+    assert torch.equal(z2, z)
+    Gp, _, gcp = aek.gate_bwd_plain(gz, u, cond, B, T, P, hop)
+    assert gc.dtype == torch.float32 and gc.shape == (B, T // hop, 2 * R)
+    assert _rel_err(G, Gp) <= tol
+    assert _rel_err(gc, gcp) <= tol
+    sums = aek.rows(G, B, T, P).float().view(B, T // hop, hop, 2 * R).sum(2)
+    assert _rel_err(gc, sums) <= tol
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,P,hop,R", GATE_SHAPES)
+def test_ae_gate_backward_writes_every_row_and_repeats(cuda, B, T, P, hop,
+                                                       R, cdt):
+    """The backward kernel called on buffers filled with NaN: every row
+    of G ``[B*(T+P), 2R]`` is written, the P straddle rows after each
+    crop exactly 0, every z and frame sum finite; a second call gives
+    the same bits."""
+    u, cond, gz = _gate_inputs(B, T, P, hop, R, cdt, cuda, seed=1)
+    outs = []
+    for _ in range(2):
+        G = u.new_full((B * (T + P), 2 * R), float("nan"))
+        z = torch.full_like(gz, float("nan"))
+        gc = torch.full(cond.shape, float("nan"), device=cuda)
+        err = aek._library().vqvae_ae_gate_bwd(
+            aek._CDTYPE[cdt], B, T, P, hop, R, gz.data_ptr(), u.data_ptr(),
+            cond.data_ptr(), G.data_ptr(), z.data_ptr(), gc.data_ptr(),
+            aek._stream(u))
+        torch.cuda.synchronize()
+        assert err == 0
+        outs.append((G, z, gc))
+    (G, z, gc), (G2, z2, gc2) = outs
+    assert torch.isfinite(G).all() and torch.isfinite(z).all()
+    assert torch.isfinite(gc).all()
+    pad = G.new_ones(G.shape[0], dtype=torch.bool)
+    aek.rows(pad[:, None], B, T, P).fill_(False)
+    assert int(pad.sum()) == B * P
+    assert not G[pad].any()
+    assert torch.equal(G, G2) and torch.equal(z, z2) and torch.equal(gc, gc2)
+
+
+def test_ae_gate_kernels_refuse_what_they_do_not_take(cuda):
+    u, cond, gz = _gate_inputs(2, 16, 4, 8, 24, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        aek.gate_fwd_kernel(u[:, :44], cond[..., :44].contiguous(), 2, 16,
+                            4, 8)
+    with pytest.raises(ValueError, match="B\\*\\(T\\+P\\)"):
+        aek.gate_fwd_kernel(u[1:], cond, 2, 16, 4, 8)
+    with pytest.raises(TypeError):
+        aek.gate_bwd_kernel(gz.float(), u, cond, 2, 16, 4, 8)
+
+
+def _per_op_gated_layers(l, s, cond, wf, wr, br, ws, dils, hop):
+    """``per_op_layers`` with the skip biases zero (``GatedStack`` takes
+    them summed into ``s``)."""
+    return per_op_layers(l, s, cond, wf, wr, br, ws,
+                         torch.zeros_like(ws[:, 0]), dils, hop)
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_gated_stack_on_the_card_vs_per_op_layers(cuda, cdt):
+    """``GatedStack`` on the card (its kernels and products) against the
+    same layers as separate ops on the card, B=3 crops of 4 frames of 16,
+    R=64, taps reaching up to 80 samples back (past each crop's start):
+    the skips and every gradient, within 1e-4 of the largest magnitude in
+    float32 and 5e-2 in bf16 (the separate ops round the gate four times,
+    the kernels once)."""
+    g = torch.Generator().manual_seed(4)
+    B, T, hop, R, S, k, dils = 3, 64, 16, 64, 32, 3, (1, 8, 40, 2)
+    L = len(dils)
+    shapes = {"l0": (B, T, R), "s0": (B * T, S), "cond": (L, B, 4, 2 * R),
+              "wf": (L, k, R, 2 * R), "wr": (L, R, R), "br": (L, R),
+              "ws": (L, R, S)}
+    scale = {"wf": 0.1, "wr": 0.1, "ws": 0.1}
+    base = {n: torch.randn(sh, generator=g) * scale.get(n, 0.5)
+            for n, sh in shapes.items()}
+    gs = torch.randn(B * T, S, generator=g).to(cuda, cdt)
+    out = []
+    for fn in (aek.gated_stack, _per_op_gated_layers):
+        x = {n: v.to(cuda, cdt).requires_grad_() for n, v in base.items()}
+        before = aek.launches_fwd, aek.launches_bwd
+        s = fn(*x.values(), dils, hop)
+        s.backward(gs)
+        torch.cuda.synchronize()
+        out.append((s.detach(), {n: t.grad for n, t in x.items()},
+                    (aek.launches_fwd - before[0],
+                     aek.launches_bwd - before[1])))
+    (s1, g1, n1), (s2, g2, n2) = out
+    assert n1 == (L, L) and n2 == (0, 0)
+    tol = 1e-4 if cdt == torch.float32 else 5e-2
+    assert _rel_err(s1, s2) <= tol
+    for n in shapes:
+        assert _rel_err(g1[n], g2[n]) <= tol, n
+
+
+def test_an_nsynth_step_launches_each_gate_kernel_once_a_layer(cuda):
+    """One training step of nsynth-h512 (its 30 + 30 layers at the
+    published widths, B=2 crops of 1024 samples): 30 gate-forward and
+    30 gate-backward launches, and a finite loss."""
+    from vqvae_tpu_torch.train.state import create_train_state
+    from vqvae_tpu_torch.train.step import train_step
+    cfg = get_config("nsynth-h512")
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, length=1024),
+                      train=dataclasses.replace(cfg.train, batch_size=2))
+    state = create_train_state(cfg, cuda)
+    wav = torch.rand(2, 1025, generator=torch.Generator().manual_seed(0))
+    f0, b0 = aek.launches_fwd, aek.launches_bwd
+    met = train_step(state, wav.to(cuda) * 1.8 - 0.9,
+                     torch.zeros(2, device=cuda), cfg)
+    assert torch.isfinite(met["loss"])
+    assert (aek.launches_fwd - f0, aek.launches_bwd - b0) == (30, 30)

@@ -169,7 +169,7 @@ def test_launch_counts_read_the_registry_and_the_kernel_modules(
     from vqvae_tpu_torch.kernels import wavenet_train_cuda as wt
     keys = ["decode", "encoder_fwd", "encoder_bwd", "chunk_fwd", "chunk_bwd",
             "chunk_bwd_rec", "chunk_bwd_win", "head_ce_fwd", "head_ce_bwd",
-            "vq_argmin", "take_rows_bwd"]
+            "vq_argmin", "take_rows_bwd", "ae_gate_fwd", "ae_gate_bwd"]
     assert list(common.launch_counts()) == keys
     monkeypatch.setattr(decode_cuda, "launches", 7)
     monkeypatch.setattr(vq_cuda, "launches", 3)

@@ -99,7 +99,8 @@ def test_train_cli_on_cpu_writes_log_config_and_weights(tmp_path):
         "decode": 0, "encoder_fwd": 0, "encoder_bwd": 0,
         "chunk_fwd": 0, "chunk_bwd": 0, "chunk_bwd_rec": 0,
         "chunk_bwd_win": 0, "head_ce_fwd": 0, "head_ce_bwd": 0,
-        "vq_argmin": 0, "take_rows_bwd": 0}
+        "vq_argmin": 0, "take_rows_bwd": 0, "ae_gate_fwd": 0,
+        "ae_gate_bwd": 0}
 
 
 @pytest.mark.parametrize("args,needle", [

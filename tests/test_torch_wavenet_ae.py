@@ -32,6 +32,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
+from _ae_layers import per_op_layers  # noqa: E402
 from portbench import weights, weights_ae  # noqa: E402
 from portbench.reference import wavenet_ae as ref  # noqa: E402
 
@@ -284,6 +285,90 @@ def test_tap_conv_and_its_gradients_equal_shifted_sums(causal, dil):
     (want * gy.transpose(1, 2)).sum().backward()
     torch.testing.assert_close(xa.grad, xb.grad, rtol=1e-12, atol=1e-12)
     torch.testing.assert_close(wa.grad, wb.grad, rtol=1e-12, atol=1e-12)
+
+
+def _per_op_decoder_stack(p, cfg, xs_prev, cond):
+    """``W.decoder_stack`` as separate ops (``per_op_layers``)."""
+    cdt, R, k = cfg.cdtype, cfg.width, cfg.filter_length
+    B, T = xs_prev.shape
+    lay = p["layers"]
+    l = W.tap_conv(xs_prev[..., None].to(cdt), p["start"]["w"].to(cdt),
+                   W.causal_offsets(k, 1)) + p["start"]["b"].to(cdt)
+    s = torch.addmm(p["skip_start"]["b"].to(cdt), l.view(B * T, R),
+                    p["skip_start"]["w"].to(cdt))
+    return per_op_layers(l, s, cond, *(lay[n].to(cdt) for n in
+                                       ("wf", "wr", "br", "ws", "bs")),
+                         cfg.dilations, cfg.hop)
+
+
+@pytest.mark.parametrize("k,dils", [(3, (1, 5, 20, 30)), (2, (7, 50, 3))])
+def test_gated_stack_equals_the_per_op_layers(k, dils):
+    """``GatedStack`` (off the card: its plain gates and frame sums)
+    against the layers as separate ops, in float32 at B=3, T=48, hop 12:
+    the skips and the gradients of l0, s0, the conditions and every
+    weight and bias.  Taps reach up to 60 samples back, past the start
+    of each crop into the one before, which the padding must hide; the
+    last layer's residual is not computed, so its ``wr``, ``br`` get
+    zeros.  Float32 sums in other orders: 1e-5 of the largest
+    magnitude."""
+    from vqvae_tpu_torch.kernels import wavenet_ae_cuda as ae
+    g = torch.Generator().manual_seed(len(dils) * 10 + k)
+    B, T, hop, R, S, L = 3, 48, 12, 8, 6, len(dils)
+    shapes = {"l0": (B, T, R), "s0": (B * T, S), "cond": (L, B, 4, 2 * R),
+              "wf": (L, k, R, 2 * R), "wr": (L, R, R), "br": (L, R),
+              "ws": (L, R, S), "bs": (L, S)}
+    leaves = {n: (torch.randn(sh, generator=g) * 0.5).requires_grad_()
+              for n, sh in shapes.items()}
+    gs = torch.randn(B * T, S, generator=g)
+    x = leaves
+    got = ae.gated_stack(x["l0"], x["s0"] + x["bs"].sum(0), x["cond"],
+                         x["wf"], x["wr"], x["br"], x["ws"], dils, hop)
+    (got * gs).sum().backward()
+    mine = {n: t.grad.clone() for n, t in leaves.items()}
+    for t in leaves.values():
+        t.grad = None
+    want = per_op_layers(*(x[n] for n in shapes), dils, hop)
+    (want * gs).sum().backward()
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.detach().abs().max()))
+    for n, t in leaves.items():
+        torch.testing.assert_close(mine[n], t.grad, rtol=0,
+                                   atol=1e-5 * float(t.grad.abs().max()),
+                                   msg=n)
+    assert not mine["wr"][L - 1].any() and not mine["br"][L - 1].any()
+    assert mine["wr"][L - 2].abs().max() > 0
+
+
+def test_decoder_stack_equals_the_per_op_stack():
+    """The model's ``decoder_stack`` against the same stack as separate
+    ops, float32, 6 layers of dilations 1..32 on crops of 32 samples (4
+    frames of 8): the skips, the conditions' gradient and every decoder
+    leaf's."""
+    cfg = dataclasses.replace(SMALL, num_layers=6, num_stages=6,
+                              ae_hop_length=8)
+    g = torch.Generator().manual_seed(11)
+    xp = torch.rand(2, 32, generator=g) * 1.8 - 0.9
+    out = []
+    for fn in (W.decoder_stack, _per_op_decoder_stack):
+        params = _program(_weights(seed=3, cfg=cfg), cfg)
+        dec = params["decoder"]
+        z = torch.randn(2, 4, cfg.ae_bottleneck_width, generator=
+                        torch.Generator().manual_seed(2))
+        cond = W.cond_maps(dec, cfg, z)[0].detach().requires_grad_()
+        s = fn(dec, cfg, xp, cond)
+        (s * torch.linspace(-1, 1, s.numel()).view(s.shape)).sum().backward()
+        grads = {k: p.grad for k, p in params.named_parameters()
+                 if k.startswith("decoder.") and p.grad is not None}
+        out.append((s.detach(), cond.grad, grads))
+    (s1, c1, g1), (s2, c2, g2) = out
+    assert len(g1) == len(g2) == 9     # no head; cond is a leaf
+    torch.testing.assert_close(s1, s2, rtol=0, atol=1e-5 * float(
+        s2.abs().max()))
+    torch.testing.assert_close(c1, c2, rtol=0, atol=1e-5 * float(
+        c2.abs().max()))
+    for k, v in g2.items():
+        torch.testing.assert_close(g1[k], v, rtol=0,
+                                   atol=1e-5 * float(v.abs().max()), msg=k)
 
 
 def test_checkpoint_round_trip_without_vq_state(tmp_path):

@@ -224,6 +224,7 @@ def _kernel_launches() -> dict:
         head_ce_cuda,
         vq_cuda,
     )
+    from vqvae_tpu_torch.kernels import wavenet_ae_cuda as ae
     from vqvae_tpu_torch.kernels import wavenet_train_cuda as wt
     return {"decode": decode_cuda.launches,
             "encoder_fwd": encoder_cuda.launches_fwd,
@@ -235,7 +236,9 @@ def _kernel_launches() -> dict:
             "head_ce_fwd": head_ce_cuda.launches_fwd,
             "head_ce_bwd": head_ce_cuda.launches_bwd,
             "vq_argmin": vq_cuda.launches,
-            "take_rows_bwd": embed_cuda.launches["take_rows_bwd"]}
+            "take_rows_bwd": embed_cuda.launches["take_rows_bwd"],
+            "ae_gate_fwd": ae.launches_fwd,
+            "ae_gate_bwd": ae.launches_bwd}
 
 
 # the kernels' launch counts join the program's counters (``counters()``)

@@ -141,6 +141,7 @@ CUSTOM_NODES = {
     "_TakeRowsBackward": ("ops/embed.py", "backward"),
     "_HaloShiftBackward": ("parallel/sharded_conv.py", "backward"),
     "_TapConvBackward": ("models/wavenet_ae.py", "backward"),
+    "GatedStackBackward": ("kernels/wavenet_ae_cuda.py", "backward"),
 }
 
 # hand kernels by source, where no launch was recorded

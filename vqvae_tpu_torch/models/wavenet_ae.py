@@ -27,7 +27,11 @@ frame-rate condition.  Activations and products are in the compute
 dtype, weights in float32 (cast once a step); the latent and the
 frame-rate products are float32.  A k-tap conv is ``k`` products
 over row slices of its once-padded input (``_TapConv``), each tap's
-added into the compute-dtype output.  Weights keep the port's layout:
+added into the compute-dtype output.  The decoder's gated layers are
+one Function (``kernels/wavenet_ae_cuda.py::GatedStack``): the same
+products, with the gate taken in float32 from the conv's output and the
+condition and rounded once, and the skips summed in place.  Weights
+keep the port's layout:
 conv weights ``[k, C_in, C_out]``, a layer stack's leaves stacked
 ``[L, ...]``.
 """
@@ -41,6 +45,7 @@ import torch.nn.functional as F
 
 from vqvae_tpu_torch.audio.framing import ScalarBatch
 from vqvae_tpu_torch.configs.wavenet_ae import WaveNetAEConfig
+from vqvae_tpu_torch.kernels.wavenet_ae_cuda import gated_stack
 from vqvae_tpu_torch.models.params import ParamTree
 from vqvae_tpu_torch.models.wavenet import _normal
 from vqvae_tpu_torch.utils import profiling
@@ -211,30 +216,20 @@ def decoder_stack(p, cfg: WaveNetAEConfig, xs_prev: torch.Tensor,
                   cond: torch.Tensor) -> torch.Tensor:
     """Scaled input ``[B, T]`` (the sample before each target) and the
     conditions ``[L, B, F, 2R]`` -> the summed skips ``[B*T, S]`` in the
-    compute dtype."""
-    cdt, R, S, k = cfg.cdtype, cfg.width, cfg.skip_width, cfg.filter_length
+    compute dtype.  The gated layers are one Function (``kernels/
+    wavenet_ae_cuda.py::GatedStack``: cuBLAS products around the gate
+    kernels); every skip bias is added once, summed, with
+    ``skip_start``'s."""
+    cdt, R, k = cfg.cdtype, cfg.width, cfg.filter_length
     B, T = xs_prev.shape
-    N, L = B * T, cfg.num_layers
     lay = p["layers"]
     l = tap_conv(xs_prev[..., None].to(cdt), p["start"]["w"].to(cdt),
                  causal_offsets(k, 1)) + p["start"]["b"].to(cdt)
-    s = torch.addmm(p["skip_start"]["b"].to(cdt), l.view(N, R),
-                    p["skip_start"]["w"].to(cdt))
-    wf = lay["wf"].to(cdt).unbind(0)
-    wrs = torch.cat([lay["wr"], lay["ws"]], 2).to(cdt).unbind(0)
-    brs = torch.cat([lay["br"], lay["bs"]], 1).to(cdt).unbind(0)
-    for i, dil in enumerate(cfg.dilations):
-        u = _tile(tap_conv(l, wf[i], causal_offsets(k, dil)), cond[i],
-                  cfg.hop)
-        ua, ub = u.split(R, -1)
-        z = (torch.sigmoid(ua) * torch.tanh(ub)).view(N, R)
-        if i < L - 1:
-            r, sk = torch.addmm(brs[i], z, wrs[i]).split([R, S], -1)
-            l = l + r.view(B, T, R)
-        else:
-            sk = torch.addmm(brs[i][R:], z, wrs[i][:, R:])
-        s = s + sk
-    return s
+    s = torch.addmm((p["skip_start"]["b"] + lay["bs"].sum(0)).to(cdt),
+                    l.view(B * T, R), p["skip_start"]["w"].to(cdt))
+    return gated_stack(l, s, cond, *(lay[n].to(cdt) for n in
+                                     ("wf", "wr", "br", "ws")),
+                       cfg.dilations, cfg.hop)
 
 
 def head_logits(p, cfg: WaveNetAEConfig, s: torch.Tensor, hc: torch.Tensor
